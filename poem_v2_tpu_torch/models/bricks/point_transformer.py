@@ -1,0 +1,92 @@
+"""Point-transformer vector attention blocks, eval path
+(counterpart of ``poem_v2_tpu/models/bricks/point_transformer.py``).
+
+The attention core runs in kernel K1 (exact KNN neighbourhoods) or K2
+(fixed anchors, block 0); ``w_qs``, ``fc1``, ``fc2`` and the anchors' k/v
+projections are plain products around them, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...ops.knn_attn import fused_anchor_vector_attention, fused_knn_vector_attention
+
+
+class RawDense(nn.Module):
+    """Bias-free dense whose ``kernel`` stays (in, out): the kernels take it as a matrix."""
+
+    def __init__(self, d_in: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(d_in, features))
+        nn.init.normal_(self.kernel, std=1.0 / math.sqrt(d_in))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel
+
+
+class _VectorAttention(nn.Module):
+    """Parameters shared by both blocks: w_qs, w_ks, w_vs, fc_delta, fc_gamma, fc1, fc2."""
+
+    def __init__(self, d_points: int, d_model: int, k: int, fc1_in: int, qs_in: int):
+        super().__init__()
+        self.k = k
+        self.fc1 = nn.Linear(fc1_in, d_model)
+        self.fc2 = nn.Linear(d_model, d_points)
+        self.w_qs = nn.Linear(qs_in, d_model, bias=False)
+        self.w_ks = RawDense(d_model, d_model)
+        self.w_vs = RawDense(d_model, d_model)
+        for name, d_in in (("fc_delta", 3), ("fc_gamma", d_model)):
+            setattr(self, f"{name}_w1", nn.Parameter(torch.empty(d_in, d_model)))
+            setattr(self, f"{name}_b1", nn.Parameter(torch.zeros(d_model)))
+            setattr(self, f"{name}_w2", nn.Parameter(torch.empty(d_model, d_model)))
+            setattr(self, f"{name}_b2", nn.Parameter(torch.zeros(d_model)))
+            nn.init.normal_(getattr(self, f"{name}_w1"), std=1.0 / math.sqrt(d_in))
+            nn.init.normal_(getattr(self, f"{name}_w2"), std=1.0 / math.sqrt(d_model))
+
+    def mlps(self):
+        return ((self.fc_delta_w1, self.fc_delta_b1, self.fc_delta_w2, self.fc_delta_b2),
+                (self.fc_gamma_w1, self.fc_gamma_b1, self.fc_gamma_w2, self.fc_gamma_b2))
+
+    def attend(self, q, query_xyz, cloud_xyz, x_cloud, anchor_idx, anchor_xyz):
+        fc_delta, fc_gamma = self.mlps()
+        if anchor_idx is None:
+            return fused_knn_vector_attention(
+                q, query_xyz, cloud_xyz, x_cloud, self.w_ks.kernel, self.w_vs.kernel,
+                fc_delta, fc_gamma, n_neighbor=self.k)
+        a_xyz = anchor_xyz if anchor_xyz is not None else cloud_xyz[:, anchor_idx]
+        x_a = x_cloud[:, anchor_idx]
+        return fused_anchor_vector_attention(
+            q, query_xyz, self.w_ks(x_a), self.w_vs(x_a), a_xyz, fc_delta, fc_gamma)
+
+
+class PtSelfAttnBlock(_VectorAttention):
+    """Vector self-attention of a point set over its K nearest points (or the anchors)."""
+
+    def __init__(self, d_points: int, d_model: int, k: int):
+        super().__init__(d_points, d_model, k, fc1_in=d_points, qs_in=d_model)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                anchor_idx: Optional[torch.Tensor] = None,
+                anchor_xyz: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.fc1(features)
+        res = self.attend(self.w_qs(x), xyz, xyz, x, anchor_idx, anchor_xyz)
+        return self.fc2(res) + features
+
+
+class PtCrossAttnBlock(_VectorAttention):
+    """Vector cross-attention of queries over their K nearest cloud points (or the anchors)."""
+
+    def __init__(self, d_points: int, d_model: int, k: int):
+        super().__init__(d_points, d_model, k, fc1_in=d_model, qs_in=d_points)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor, query_xyz: torch.Tensor,
+                query_feat: torch.Tensor, anchor_idx: Optional[torch.Tensor] = None,
+                anchor_xyz: Optional[torch.Tensor] = None) -> torch.Tensor:
+        res = self.attend(self.w_qs(query_feat), query_xyz, xyz, self.fc1(features),
+                          anchor_idx, anchor_xyz)
+        return self.fc2(res) + query_feat

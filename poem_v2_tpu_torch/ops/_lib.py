@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels (``poem_v2_tpu_torch/csrc``).
+
+The kernels have a plain C interface and are compiled with ``nvcc`` into
+one shared library, loaded with ``ctypes``. The build runs at first use,
+from the sources in the checkout, into ``poem_v2_tpu_torch/_build/``
+(git-ignored); the library's file name carries a hash of the sources, so
+an edited source is rebuilt and a stale library is never loaded.
+
+Nothing here runs at import time: CPU-only environments import the ops
+modules freely and only a call with a CUDA tensor reaches :func:`lib`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+DTYPE_F32, DTYPE_BF16 = 0, 1
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "poem_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "poem_vector_attention": [_I, _I] + [_P] * 17 + [_I] * 5 + [_P],
+    "poem_dense_cross_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "poem_grid_sample_points": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus the compiler's report of its build."""
+
+    def __init__(self, path: str, ptxas_log: str):
+        self.path = path
+        self.ptxas_log = ptxas_log
+        self._dll = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self._dll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        """Run one C entry point; raise if it reports a CUDA error."""
+        err = getattr(self._dll, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return path
+
+
+def build() -> KernelLibrary:
+    """Compile ``csrc/*.cu`` into ``_build/libpoem_kernels_<hash>.so`` if absent."""
+    srcs = _sources()
+    h = hashlib.sha256()
+    for p in srcs:
+        with open(p, "rb") as f:
+            h.update(os.path.basename(p).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"libpoem_kernels_{digest}.so")
+    log_path = so + ".log"
+    if not os.path.exists(so):
+        cu = [p for p in srcs if p.endswith(".cu")]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+            with open(log_path, "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    log = open(log_path).read() if os.path.exists(log_path) else ""
+    return KernelLibrary(so, log)
+
+
+_LIB: Optional[KernelLibrary] = None
+
+
+def lib() -> KernelLibrary:
+    """The process's kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        _LIB = build()
+    return _LIB
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t) -> int:
+    import torch
+
+    if t.dtype == torch.float32:
+        return DTYPE_F32
+    if t.dtype == torch.bfloat16:
+        return DTYPE_BF16
+    raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")

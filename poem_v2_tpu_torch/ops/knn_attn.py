@@ -1,0 +1,230 @@
+"""Fused exact-KNN and fixed-anchor vector attention (kernels K1, K2).
+
+Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
+
+* :func:`fused_knn_vector_attention` <- ``fused_knn_vector_attention``
+  (exact K-NN selection + neighbour gather + vector attention);
+* :func:`fused_anchor_vector_attention` <- ``fused_anchor_vector_attention``
+  (the same attention against fixed, pre-projected anchors).
+
+Each wrapper takes CPU tensors to its plain PyTorch version and CUDA
+tensors to the hand-written kernel in ``csrc/knn_attn.cu``; there is no
+fallback from one to the other. ``<wrapper>.launches`` counts kernel
+launches.
+
+Numerics follow the TPU kernel: operands of every matrix product are cast
+to the compute dtype (that of ``q``), products accumulate in float32,
+biases, the softmax and the (v + pos) aggregate stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+from . import _lib
+
+PACKED_MAX_POINTS = 4096  # the packed keys keep the column in 12 bits
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def use_packed_keys(n_points: int) -> bool:
+    """Packed-key selection iff the cloud padded to 128 fits 12 bits,
+    as the TPU wrapper decides (pallas_knn_attn.py:877)."""
+    return _round_up(n_points, 128) <= PACKED_MAX_POINTS
+
+
+def square_distance_rn(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """(B, M, 3), (B, N, 3) -> (B, M, N) squared distances, formed as
+    ``(|q|^2 + |p|^2) - 2 q.p`` one rounded float32 operation at a time
+    (no matrix product, no fused multiply-add): the kernel forms the same
+    values bit for bit, so both select the same neighbours."""
+    q = query.float()[:, :, None, :]
+    p = points.float()[:, None, :, :]
+
+    def sq(a):
+        return a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1] + a[..., 2] * a[..., 2]
+
+    cross = q[..., 0] * p[..., 0] + q[..., 1] * p[..., 1] + q[..., 2] * p[..., 2]
+    return (sq(q) + sq(p)) - 2.0 * cross
+
+
+def knn_select_plain(query_xyz: torch.Tensor, pt_xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, M, K) int32 neighbour indices in ascending (distance, index) order."""
+    d2 = square_distance_rn(query_xyz, pt_xyz)
+    if use_packed_keys(pt_xyz.shape[1]):
+        col = torch.arange(d2.shape[-1], device=d2.device, dtype=torch.int32)
+        keys = (d2.clamp_min(0.0).view(torch.int32) & ~0xFFF) | col
+        # keys are unique, so the sort is a total order
+        return (torch.sort(keys, dim=-1).values[..., :k] & 0xFFF).to(torch.int32)
+    return torch.sort(d2, dim=-1, stable=True).indices[..., :k].to(torch.int32)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """x @ w with both operands rounded to ``dt``, accumulated in float32."""
+    return x.to(dt).float() @ w.to(dt).float()
+
+
+def vector_attention_plain(
+    q: torch.Tensor,         # (B, M, D)
+    k: torch.Tensor,         # (B, M, K, D) float32 keys
+    v: torch.Tensor,         # (B, M, K, D) float32 values
+    delta: torch.Tensor,     # (B, M, K, 3) float32 q_xyz - nn_xyz
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """The attention both kernels compute, on gathered neighbours; (B, M, D) in q's dtype."""
+    dt = q.dtype
+    w1, b1, w2, b2 = fc_delta
+    g0, c0, g1, c1 = fc_gamma
+    t1 = torch.relu(_mm(delta, w1, dt) + b1.to(dt).float())
+    pos = _mm(t1, w2, dt) + b2.to(dt).float()
+    x = q.float()[:, :, None] - k + pos
+    h = torch.relu(_mm(x, g0, dt) + c0.to(dt).float())
+    g = (_mm(h, g1, dt) + c1.to(dt).float()) * (1.0 / math.sqrt(q.shape[-1]))
+    attn = torch.softmax(g, dim=-2)
+    return torch.sum(attn * (v + pos), dim=-2).to(dt)
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
+    B, M, K = idx.shape
+    flat = idx.reshape(B, M * K).long()
+    return torch.gather(x, 1, flat[..., None].expand(B, M * K, x.shape[-1])).reshape(B, M, K, -1)
+
+
+def plain_fused_knn_vector_attention(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma,
+                                     n_neighbor: int = 32, return_idx: bool = False):
+    """Plain PyTorch version of :func:`fused_knn_vector_attention`."""
+    dt = q.dtype
+    idx = knn_select_plain(query_xyz, pt_xyz, n_neighbor)
+    x_g = _gather(x_full.to(dt), idx)
+    nn_xyz = _gather(pt_xyz.float(), idx)
+    delta = query_xyz.float()[:, :, None] - nn_xyz
+    out = vector_attention_plain(
+        q, _mm(x_g, wk, dt), _mm(x_g, wv, dt), delta, fc_delta, fc_gamma
+    )
+    return (out, idx) if return_idx else out
+
+
+def plain_fused_anchor_vector_attention(q, query_xyz, k_anchor, v_anchor, anchor_xyz,
+                                        fc_delta, fc_gamma):
+    """Plain PyTorch version of :func:`fused_anchor_vector_attention`."""
+    B, M, D = q.shape
+    A = k_anchor.shape[1]
+    a_xyz = anchor_xyz.float().expand(B, A, 3) if anchor_xyz.dim() == 3 else \
+        anchor_xyz.float()[None].expand(B, A, 3)
+    k = k_anchor.to(q.dtype).float()[:, None].expand(B, M, A, D)
+    v = v_anchor.to(q.dtype).float()[:, None].expand(B, M, A, D)
+    delta = query_xyz.float()[:, :, None] - a_xyz[:, None]
+    return vector_attention_plain(q, k, v, delta, fc_delta, fc_gamma)
+
+
+def _weights(dt, tensors):
+    return [t.to(dt).contiguous() for t in tensors]
+
+
+def _check_shapes(D: int, rows: int) -> None:
+    """What csrc/knn_attn.cu takes: D <= 256, D % 4 == 0, rows per query dividing 32."""
+    if D > 256 or D % 4 or 32 % rows:
+        raise ValueError(f"the CUDA kernel takes D <= 256 (D % 4 == 0) and 32 % K == 0, "
+                         f"got D={D}, K={rows}")
+
+
+def _check_cuda(*ts):
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"all tensors must be on {dev}, got one on {t.device}")
+
+
+def fused_knn_vector_attention(
+    q: torch.Tensor,          # (B, M, D) w_qs(query_feat)
+    query_xyz: torch.Tensor,  # (B, M, 3)
+    pt_xyz: torch.Tensor,     # (B, N, 3)
+    x_full: torch.Tensor,     # (B, N, D) fc1 activations of the cloud
+    wk: torch.Tensor,         # (D, D) (in, out)
+    wv: torch.Tensor,         # (D, D)
+    fc_delta: Sequence[torch.Tensor],  # (w1 (3, D), b1, w2 (D, D), b2)
+    fc_gamma: Sequence[torch.Tensor],  # (g0 (D, D), c0, g1 (D, D), c1)
+    n_neighbor: int = 32,
+    return_idx: bool = False,
+):
+    """Vector attention of every query over its ``n_neighbor`` exact
+    nearest cloud points; (B, M, D), plus the (B, M, K) int32 indices
+    when ``return_idx``."""
+    B, M, D = q.shape
+    N = pt_xyz.shape[1]
+    if n_neighbor > N:
+        raise ValueError(f"n_neighbor={n_neighbor} exceeds the cloud's {N} points")
+    if q.device.type == "cpu":
+        return plain_fused_knn_vector_attention(
+            q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, n_neighbor, return_idx)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma)
+    _check_shapes(D, n_neighbor)
+    dt = q.dtype
+    L = _lib.lib()
+    qxyz = query_xyz.float().contiguous()
+    pxyz = pt_xyz.float().contiguous()
+    qc = q.contiguous()
+    xf = x_full.to(dt).contiguous()
+    ws = _weights(dt, [wk, wv, *fc_delta, *fc_gamma])
+    idx = torch.empty((B, M, n_neighbor), dtype=torch.int32, device=q.device)
+    out = torch.empty_like(qc)
+    s = _lib.stream_ptr(q)
+    L.call("poem_knn_select", qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(),
+           B, M, N, n_neighbor, int(use_packed_keys(N)), s)
+    L.call("poem_vector_attention", _lib.dtype_code(qc), 0, qc.data_ptr(), qxyz.data_ptr(),
+           pxyz.data_ptr(), idx.data_ptr(), xf.data_ptr(), None,
+           *[w.data_ptr() for w in ws], out.data_ptr(), B, M, N, D, n_neighbor, s)
+    fused_knn_vector_attention.launches += 1
+    return (out, idx) if return_idx else out
+
+
+fused_knn_vector_attention.launches = 0
+
+
+def fused_anchor_vector_attention(
+    q: torch.Tensor,           # (B, M, D) w_qs(query_feat)
+    query_xyz: torch.Tensor,   # (B, M, 3)
+    k_anchor: torch.Tensor,    # (B, A, D) pre-projected anchor keys
+    v_anchor: torch.Tensor,    # (B, A, D)
+    anchor_xyz: torch.Tensor,  # (A, 3) or (B, A, 3)
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """Vector attention of every query over the same A anchors; (B, M, D)."""
+    B, M, D = q.shape
+    A = k_anchor.shape[1]
+    if q.device.type == "cpu":
+        return plain_fused_anchor_vector_attention(
+            q, query_xyz, k_anchor, v_anchor, anchor_xyz, fc_delta, fc_gamma)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(q, query_xyz, k_anchor, v_anchor, anchor_xyz, *fc_delta, *fc_gamma)
+    _check_shapes(D, A)
+    dt = q.dtype
+    L = _lib.lib()
+    axyz = anchor_xyz.float()
+    axyz = (axyz if axyz.dim() == 3 else axyz[None]).expand(B, A, 3).contiguous()
+    qxyz = query_xyz.float().contiguous()
+    qc = q.contiguous()
+    ka = k_anchor.to(dt).contiguous()
+    va = v_anchor.to(dt).contiguous()
+    ws = _weights(dt, [*fc_delta, *fc_gamma])
+    out = torch.empty_like(qc)
+    L.call("poem_vector_attention", _lib.dtype_code(qc), 1, qc.data_ptr(), qxyz.data_ptr(),
+           axyz.data_ptr(), None, ka.data_ptr(), va.data_ptr(), None, None,
+           *[w.data_ptr() for w in ws], out.data_ptr(), B, M, A, D, A, _lib.stream_ptr(q))
+    fused_anchor_vector_attention.launches += 1
+    return out
+
+
+fused_anchor_vector_attention.launches = 0

@@ -1,0 +1,74 @@
+"""The port stands alone: no JAX, flax, optax, orbax, PyYAML or poem_v2_tpu anywhere in it."""
+
+import ast
+import os
+import subprocess
+import sys
+
+PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "poem_v2_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "poem_v2_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_import_in_sources():
+    bad = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                p = os.path.join(root, f)
+                bad += [(p, m) for m in _imported_roots(p) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+_SCRIPT = r"""
+import copy, importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %(forbidden)r:
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import numpy as np, torch
+import poem_v2_tpu_torch
+for m in pkgutil.walk_packages(poem_v2_tpu_torch.__path__, "poem_v2_tpu_torch."):
+    importlib.import_module(m.name)
+from poem_v2_tpu_torch.configs import MEDIUM
+from poem_v2_tpu_torch.serving.predictor import Predictor
+
+cfg = copy.deepcopy(MEDIUM)
+m = cfg["MODEL"]
+m["BACKBONE"]["WIDTH"] = 8
+h = m["HEAD"]
+h.update(EMBED_DIMS=32, POINTS_FEAT_DIM=32, IN_CHANNELS=32, N_SAMPLE=256)
+h["POSITIONAL_ENCODING"]["NUM_FEATS"] = 16
+h["TRANSFORMER"].update(N_BLOCKS=2, INPUT_FEAT_DIM=32, N_NEIGHBOR=8, N_NEIGHBOR_QUERY=8)
+pred = Predictor.from_config(cfg, dtype=torch.float32, device="cpu", view_bucket=2)
+rs = np.random.RandomState(0)
+images = rs.randint(0, 256, (1, 2, 64, 64, 3)).astype(np.uint8)
+intr = np.tile((np.eye(3) * [80, 80, 1] + [[0, 0, 32], [0, 0, 32], [0, 0, 0]])[None, None], (1, 2, 1, 1))
+extr = np.tile(np.eye(4)[None, None], (1, 2, 1, 1))
+extr[0, 1, :3, 3] = [0.1, 0.0, 0.0]
+out = pred(images, intr.astype(np.float32), extr.astype(np.float32))
+assert out["verts_3d"].shape == (1, 778, 3) and np.isfinite(out["verts_3d"]).all()
+leaked = [k for k in sys.modules if k.split(".")[0] in %(forbidden)r]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_cpu_forward_without_jax_or_yaml():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT % {"forbidden": FORBIDDEN}],
+                          capture_output=True, text=True, env=env, timeout=300,
+                          cwd=os.path.dirname(PKG))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

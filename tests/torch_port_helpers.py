@@ -1,0 +1,121 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Both sides get the same numpy inputs and the same parameters: a flax
+parameter tree from ``jax.eval_shape`` filled by ``np.random.RandomState``,
+converted for the port by ``poem_v2_tpu_torch.convert``. Where the JAX
+side reaches a Pallas kernel, :func:`pallas_interpret` runs it in
+interpret mode on the CPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import jax
+import numpy as np
+import torch
+
+from poem_v2_tpu_torch.convert import flax_to_state_dict
+
+
+def fill_params(shapes, seed: int = 0, gain: float = 1.0):
+    """Random numpy values for an ``eval_shape`` tree: matrices ~ N(0, gain^2 / fan_in)
+    over their input axes, vectors ~ N(0, 0.1) (norm scales around 1)."""
+    rs = np.random.RandomState(seed)
+
+    def one(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if len(s.shape) >= 2:
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (gain * rs.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name in ("scale", "var"):
+            return (1.0 + 0.1 * rs.randn(*s.shape)).astype(np.float32)
+        return (0.1 * rs.randn(*s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(one, shapes)
+
+
+def tiny_cfg(norm: str = "gn"):
+    """The tiny HRNet POEM config: width 8, embed 32, 256 BPS points, 2 blocks, K=8."""
+    from __graft_entry__ import _tiny_cfg as graft_tiny
+
+    cfg = graft_tiny(embed=32, nsample=256, image=64, backbone="HRNet")
+    cfg.BACKBONE.WIDTH = 8
+    cfg.BACKBONE.NORM = norm
+    cfg.HEAD.IN_CHANNELS = 32
+    return cfg
+
+
+def to_numpy_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+def load_converted(module: torch.nn.Module, variables, prefix: str = "") -> None:
+    """Load converted flax ``variables`` into ``module`` (strict: every key once)."""
+    sd = flax_to_state_dict(to_numpy_tree(variables))
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    module.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                           strict=True)
+
+
+@contextlib.contextmanager
+def pallas_interpret(exact_sampler: bool = False):
+    """Run the JAX package's Pallas eval kernels with ``interpret=True``.
+
+    ``exact_sampler`` swaps the fused bilinear kernel (bf16 tap weights) for
+    the package's f32 ``grid_sample_points_matmul``."""
+    import poem_v2_tpu.ops.pallas_bilinear as pb
+    import poem_v2_tpu.ops.pallas_cross_attn as pc
+    import poem_v2_tpu.ops.pallas_knn_attn as pk
+    from poem_v2_tpu.ops.sampling import grid_sample_points_matmul
+
+    saved = (pk.fused_knn_vector_attention, pk.fused_anchor_vector_attention,
+             pc.dense_cross_attention, pb.grid_sample_points_fused)
+    knn, anchor, dense, bil = saved
+
+    def interp(fn):
+        def run(*a, **kw):
+            kw["interpret"] = True
+            return fn(*a, **kw)
+        return run
+
+    pk.fused_knn_vector_attention = interp(knn)
+    pk.fused_anchor_vector_attention = interp(anchor)
+    pc.dense_cross_attention = interp(dense)
+    pb.grid_sample_points_fused = (
+        (lambda feat, coords, **kw: grid_sample_points_matmul(feat, coords))
+        if exact_sampler else interp(bil))
+    try:
+        yield
+    finally:
+        (pk.fused_knn_vector_attention, pk.fused_anchor_vector_attention,
+         pc.dense_cross_attention, pb.grid_sample_points_fused) = saved
+
+
+def look_at_cameras(rs: np.random.RandomState, B: int, V: int, image_size: int,
+                    dist: float = 0.5):
+    """Cameras on a sphere around a hand-sized target at the origin of view 0's
+    frame: (intr (B, V, 3, 3), extr camera->master (B, V, 4, 4)), float32."""
+    target = np.array([0.0, 0.0, dist])
+    intr = np.zeros((B, V, 3, 3), np.float32)
+    extr = np.zeros((B, V, 4, 4), np.float32)
+    for b in range(B):
+        for v in range(V):
+            if v == 0:
+                centre = np.zeros(3)
+            else:
+                d = rs.randn(3)
+                d[2] = -abs(d[2])
+                centre = target + dist * d / np.linalg.norm(d)
+            z = target - centre
+            z /= np.linalg.norm(z)
+            x = np.cross([0.0, 1.0, 0.0], z)
+            x /= np.linalg.norm(x)
+            y = np.cross(z, x)
+            extr[b, v, :3, :3] = np.stack([x, y, z], axis=1)
+            extr[b, v, :3, 3] = centre
+            extr[b, v, 3, 3] = 1.0
+            f = image_size * (1.2 + 0.1 * rs.rand())
+            intr[b, v] = [[f, 0, image_size / 2], [0, f, image_size / 2], [0, 0, 1]]
+    return intr, extr
