@@ -41,3 +41,13 @@ def project_world_to_pixel(points_world: torch.Tensor, cam_extr_c2m: torch.Tenso
     extr_m2c = invert_rigid(cam_extr_c2m)
     pts_cam = cam_extr_transf(extr_m2c, points_world[:, None])
     return cam_intr_projection(cam_intr, pts_cam)
+
+
+def mano_to_openpose(j_regressor: torch.Tensor, mano_verts: torch.Tensor) -> torch.Tensor:
+    """MANO vertices (..., 778, 3) -> 21 OpenPose-ordered joints (..., 21, 3):
+    the 16 regressed joints ((16, 778) ``j_regressor``) plus 5 fingertip vertices."""
+    from ..mano.layer import MANO_KPID_2_VERTICES, MANO_TO_OPENPOSE
+
+    joints16 = (j_regressor[:, :, None] * mano_verts[..., None, :, :]).sum(-2)
+    tips = mano_verts[..., [v[0] for _, v in sorted(MANO_KPID_2_VERTICES.items())], :]
+    return torch.cat([joints16, tips], dim=-2)[..., MANO_TO_OPENPOSE, :]

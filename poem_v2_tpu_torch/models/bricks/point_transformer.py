@@ -1,9 +1,14 @@
-"""Point-transformer vector attention blocks, eval path
+"""Point-transformer vector attention blocks
 (counterpart of ``poem_v2_tpu/models/bricks/point_transformer.py``).
 
-The attention core runs in kernel K1 (exact KNN neighbourhoods) or K2
-(fixed anchors, block 0); ``w_qs``, ``fc1``, ``fc2`` and the anchors' k/v
-projections are plain products around them, as in the JAX package.
+In eval the attention core runs in kernel K1 (exact KNN neighbourhoods)
+or K2 (fixed anchors, block 0). In training (``module.train()``) the KNN
+neighbourhoods run K6, whose backward scatters by K7, and the anchors take
+the plain path of the JAX package's training step: the full k/v
+projections gathered by the anchor indices, then
+:func:`~poem_v2_tpu_torch.ops.vector_attn.vector_attention_reference`.
+``w_qs``, ``fc1``, ``fc2`` and the projections are plain products around
+them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...ops.knn_attn import fused_anchor_vector_attention, fused_knn_vector_attention
+from ...ops.knn_attn import (fused_anchor_vector_attention, fused_knn_vector_attention,
+                             knn_vector_attention_trainable)
+from ...ops.vector_attn import vector_attention_reference
 
 
 class RawDense(nn.Module):
@@ -55,13 +62,31 @@ class _VectorAttention(nn.Module):
     def attend(self, q, query_xyz, cloud_xyz, x_cloud, anchor_idx, anchor_xyz):
         fc_delta, fc_gamma = self.mlps()
         if anchor_idx is None:
-            return fused_knn_vector_attention(
-                q, query_xyz, cloud_xyz, x_cloud, self.w_ks.kernel, self.w_vs.kernel,
-                fc_delta, fc_gamma, n_neighbor=self.k)
+            knn = knn_vector_attention_trainable if self.training else fused_knn_vector_attention
+            return knn(q, query_xyz, cloud_xyz, x_cloud, self.w_ks.kernel, self.w_vs.kernel,
+                       fc_delta, fc_gamma, n_neighbor=self.k)
         a_xyz = anchor_xyz if anchor_xyz is not None else cloud_xyz[:, anchor_idx]
+        if self.training:
+            return self._anchor_attention_train(q, query_xyz, x_cloud, anchor_idx, a_xyz,
+                                                fc_delta, fc_gamma)
         x_a = x_cloud[:, anchor_idx]
         return fused_anchor_vector_attention(
             q, query_xyz, self.w_ks(x_a), self.w_vs(x_a), a_xyz, fc_delta, fc_gamma)
+
+    def _anchor_attention_train(self, q, query_xyz, x_cloud, anchor_idx, a_xyz, fc_delta,
+                                fc_gamma):
+        """Every query attends to the same A anchors, in q's dtype
+        (point_transformer.py:207-210, 221-222, 302-305)."""
+        B, M, D = q.shape
+        A = anchor_idx.shape[0]
+        a_xyz = a_xyz if a_xyz.dim() == 3 else a_xyz[None].expand(B, A, 3)
+        k_g = self.w_ks(x_cloud)[:, anchor_idx][:, None].expand(B, M, A, D)
+        v_g = self.w_vs(x_cloud)[:, anchor_idx][:, None].expand(B, M, A, D)
+        delta = query_xyz[:, :, None] - a_xyz[:, None]
+        dt = q.dtype
+        return vector_attention_reference(
+            q, k_g.to(dt), v_g.to(dt), delta.to(dt), [p.to(dt) for p in fc_delta],
+            [p.to(dt) for p in fc_gamma])
 
 
 class PtSelfAttnBlock(_VectorAttention):

@@ -1,9 +1,16 @@
-"""Point-embedded transformer decoder, eval path (counterpart of ``poem_v2_tpu/models/decoder.py``).
+"""Point-embedded transformer decoder (counterpart of ``poem_v2_tpu/models/decoder.py``).
 
-Each block: shared Linear embedding of queries and BPS features, two
-BERT cross-attentions into the BPS features, the pointer layer (KNN
-self- and cross- vector attention, Δxyz head), a gelu FFN. Block 0 uses
-32 fixed anchors in place of KNN. Non-parametric output only.
+Each block: shared Linear embedding (+ dropout) of queries and BPS
+features, two BERT cross-attentions into the BPS features, the pointer
+layer (KNN self- and cross- vector attention, Δxyz head), a gelu FFN.
+Block 0 uses 32 fixed anchors in place of KNN. Non-parametric output only.
+
+Training mode (``module.train()``) turns the dropout on and, with grad
+enabled, runs each block under ``torch.utils.checkpoint``: the backward
+recomputes the block, except the kernels' outputs (the dense attention
+outputs, K6's outputs and neighbour indices), which are kept from the
+forward as the JAX ``save_only_these_names`` policy keeps them
+(:mod:`poem_v2_tpu_torch.ops.remat`), so no kernel runs twice.
 """
 
 from __future__ import annotations
@@ -12,7 +19,9 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.remat import KernelOutputStore
 from .bricks.attention import BertFFN, MLP, MultiHeadCrossAttention
 from .bricks.point_transformer import PtCrossAttnBlock, PtSelfAttnBlock
 
@@ -39,18 +48,19 @@ class PointerLayer(nn.Module):
 
 class PointMetroBlock(nn.Module):
     def __init__(self, hidden_size: int = 256, num_heads: int = 4, n_neighbor: int = 32,
-                 n_neighbor_query: int = 32, init_block: bool = False):
+                 n_neighbor_query: int = 32, init_block: bool = False, dropout: float = 0.1):
         super().__init__()
         self.embedding = nn.Linear(hidden_size, hidden_size)
-        self.attn = MultiHeadCrossAttention(hidden_size, num_heads)
-        self.cross_attn = MultiHeadCrossAttention(hidden_size, num_heads)
+        self.drop = nn.Dropout(dropout)
+        self.attn = MultiHeadCrossAttention(hidden_size, num_heads, dropout)
+        self.cross_attn = MultiHeadCrossAttention(hidden_size, num_heads, dropout)
         self.vec_attn = PointerLayer(hidden_size, n_neighbor, n_neighbor_query, init_block)
-        self.ffn = BertFFN(hidden_size, hidden_size * 4)
+        self.ffn = BertFFN(hidden_size, hidden_size * 4, dropout)
 
     def forward(self, query_xyz, query_feats, pt_xyz, pt_feats, query_anchor_idx=None,
                 pt_anchor_idx=None, anchor_xyz=None):
-        q_emb = self.embedding(query_feats)
-        k_emb = self.embedding(pt_feats)
+        q_emb = self.drop(self.embedding(query_feats))
+        k_emb = self.drop(self.embedding(pt_feats))
         attn_out = self.cross_attn(self.attn(q_emb, k_emb), k_emb)
         feats, xyz = self.vec_attn(pt_xyz, k_emb, query_xyz, attn_out, query_anchor_idx,
                                    pt_anchor_idx, anchor_xyz)
@@ -61,21 +71,29 @@ class PtEmbedDecoder(nn.Module):
     """Stack of PointMetroBlocks; returns per-block coordinates (n_blocks, B, M, 3)."""
 
     def __init__(self, n_blocks: int = 3, hidden_size: int = 256, num_heads: int = 4,
-                 n_neighbor: int = 32, n_neighbor_query: int = 32):
+                 n_neighbor: int = 32, n_neighbor_query: int = 32, dropout: float = 0.1):
         super().__init__()
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             self.add_module(f"block_{i}", PointMetroBlock(
-                hidden_size, num_heads, n_neighbor, n_neighbor_query, init_block=(i == 0)))
+                hidden_size, num_heads, n_neighbor, n_neighbor_query, init_block=(i == 0),
+                dropout=dropout))
 
     def forward(self, query_xyz, query_feats, pt_xyz, pt_feats,
                 query_anchor_idx: Optional[torch.Tensor] = None,
                 pt_anchor_idx: Optional[torch.Tensor] = None,
                 anchor_xyz: Optional[torch.Tensor] = None) -> torch.Tensor:
         coords = []
+        use_remat = self.training and torch.is_grad_enabled()
         for i in range(self.n_blocks):
-            query_feats, query_xyz = getattr(self, f"block_{i}")(
-                query_xyz, query_feats, pt_xyz, pt_feats, query_anchor_idx, pt_anchor_idx,
-                anchor_xyz)
+            block = getattr(self, f"block_{i}")
+            args = (query_xyz, query_feats, pt_xyz, pt_feats, query_anchor_idx, pt_anchor_idx,
+                    anchor_xyz)
+            if use_remat:
+                store = KernelOutputStore()
+                query_feats, query_xyz = checkpoint(block, *args, use_reentrant=False,
+                                                    context_fn=store.contexts)
+            else:
+                query_feats, query_xyz = block(*args)
             coords.append(query_xyz)
         return torch.stack(coords, dim=0)

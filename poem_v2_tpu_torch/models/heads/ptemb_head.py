@@ -1,10 +1,12 @@
-"""POEM generalized head, eval path, non-parametric
+"""POEM generalized head, non-parametric
 (counterpart of ``poem_v2_tpu/models/heads/ptemb_head.py``; no PETR, no v3 decoder).
 
 The 4096-point BPS cloud around reference joint 9 is projected into every
-view, sampled from the positional-encoded feature maps (kernel K4),
-reordered by the reference's ``.view(1, -1, V, C)`` scramble, merged
-across views, and decoded by the point-embedded decoder.
+view, sampled from the positional-encoded feature maps (kernel K4 in eval;
+in training the differentiable interpolation-matrix sampler, with the grid
+and the weights in the compute dtype, as the JAX head trains), reordered by
+the reference's ``.view(1, -1, V, C)`` scramble (the plain row gather),
+merged across views, and decoded by the point-embedded decoder.
 """
 
 from __future__ import annotations
@@ -17,10 +19,16 @@ from torch import nn
 
 from ...geometry.camera import project_world_to_pixel
 from ...ops.bilinear import grid_sample_points
-from ...ops.sampling import pixel_to_grid
+from ...ops.sampling import grid_sample_points_matmul, pixel_to_grid
 from ..bricks.attention import MLP
 from ..decoder import PtEmbedDecoder
 from ..positional import sine_positional_encoding_3d_factors
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype matrix products take here: autocast's where it is on, else t's."""
+    dev = t.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else t.dtype
 
 
 class AdaptPos3D(nn.Module):
@@ -103,7 +111,7 @@ class POEMGeneralizedHead(nn.Module):
                  pt_anchor_idx: Optional[np.ndarray] = None,
                  anchor_xyz: Optional[np.ndarray] = None,
                  n_blocks: int = 3, num_heads: int = 4, n_neighbor: int = 32,
-                 n_neighbor_query: int = 32):
+                 n_neighbor_query: int = 32, dropout: float = 0.1):
         super().__init__()
         self.embed_dims, self.nsample, self.radius = embed_dims, nsample, radius
         self.pe_num_feats, self.center_idx = pe_num_feats, center_idx
@@ -112,7 +120,7 @@ class POEMGeneralizedHead(nn.Module):
         self.merge_feature = MergeFeaturesMV(embed_dims)
         self.query_feat_embedding = nn.Parameter(torch.empty(num_query, pt_feat_dim))
         self.transformer = PtEmbedDecoder(n_blocks, pt_feat_dim, num_heads, n_neighbor,
-                                          n_neighbor_query)
+                                          n_neighbor_query, dropout)
         # float32 geometry constants, kept out of the state dict and of dtype casts
         self._np_consts = {
             "bps": np.asarray(bps_basis, np.float32),
@@ -147,8 +155,13 @@ class POEMGeneralizedHead(nn.Module):
         ref_center = ref_joints[:, self.center_idx].float()
         bps_world = c["bps"][None] + ref_center[:, None]
         proj = project_world_to_pixel(bps_world, cam_extr.float(), cam_intr.float())
-        grid = pixel_to_grid(proj, inp_res)
-        feats_flat = grid_sample_points(x.reshape(B * V, H, W, C), grid.reshape(B * V, NS, 2))
+        grid = pixel_to_grid(proj, inp_res).reshape(B * V, NS, 2)
+        if self.training:
+            cdt = _compute_dtype(x)
+            feats_flat = grid_sample_points_matmul(x.reshape(B * V, H, W, C).to(cdt),
+                                                   grid.to(cdt))
+        else:
+            feats_flat = grid_sample_points(x.reshape(B * V, H, W, C), grid)
         bps_feats = feats_flat.reshape(B, V, NS, C)
         n_val = view_mask.to(torch.int64).sum(1)
         scr = scramble_views(bps_feats.transpose(2, 3), n_val)

@@ -1,13 +1,16 @@
-"""POEMNet eval forward and create_poem_model (counterpart of ``poem_v2_tpu/models/poem.py``).
+"""POEMNet and create_poem_model (counterpart of ``poem_v2_tpu/models/poem.py``).
 
 images (B, V, H, W, 3) with a (B, V) view mask
   -> HRNet per view -> feature neck (B*V, 16, 16, C) + heatmap neck
-  -> integral 2D joints -> masked DLT reference joints
+  -> integral 2D joints -> reference joints: eval = masked DLT of the 2D
+     joints; train (``module.train()``) = ground truth jittered by draws
+     the caller passes (:func:`draw_ref_noise`)
   -> POEM generalized head -> per-block 799-point coordinates.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -29,21 +32,59 @@ _ASSETS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "assets")
 
 
+RefDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def draw_ref_noise(generator: torch.Generator, batch: int, num_joints: int = 21) -> RefDraws:
+    """The draws of one train forward's reference jitter, on the generator's
+    device: normal (B, J, 3), normal (1,), uniform (1,) (poem.py:86-97)."""
+    dev = generator.device
+    return (torch.randn((batch, num_joints, 3), generator=generator, device=dev),
+            torch.randn((1,), generator=generator, device=dev),
+            torch.rand((1,), generator=generator, device=dev))
+
+
+def jitter_reference_joints(gt: torch.Tensor, draws: RefDraws, ref_noise: float = 0.01,
+                            center_idx: int = 0) -> torch.Tensor:
+    """Ground-truth joints (B, J, 3) moved by ``ref_noise`` metres of noise and
+    scaled by 1 +- 1% about the jittered root, from ``draws``."""
+    normal_joints, normal_shift, uniform = draws
+    ref = gt.float() + ref_noise * (normal_joints + normal_shift)
+    root = ref[:, center_idx][:, None]
+    scale = 0.01 * (uniform * 2.0 - 1.0) + 1.0
+    return scale * (ref - root) + root
+
+
 class POEMNet(nn.Module):
-    """End-to-end POEM eval forward; public tensors keep the JAX layout."""
+    """End-to-end POEM forward; public tensors keep the JAX layout.
+
+    A ``compute_dtype`` (None: the parameters' dtype) other than the
+    parameters' dtype runs the forward under ``torch.autocast`` in that dtype
+    (float32 parameters, bfloat16 compute, as flax's ``dtype`` does)."""
 
     def __init__(self, backbone: nn.Module, feat_neck: nn.Module, uv_neck: nn.Module,
-                 head: nn.Module, num_joints: int = 21, center_idx: int = 0):
+                 head: nn.Module, num_joints: int = 21, center_idx: int = 0,
+                 ref_noise: float = 0.01, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.backbone, self.feat_neck, self.uv_neck, self.head = backbone, feat_neck, uv_neck, head
         self.num_joints, self.center_idx = num_joints, center_idx
+        self.ref_noise = ref_noise
+        self.compute_dtype = compute_dtype
 
     def forward(self, images: torch.Tensor, view_mask: torch.Tensor, cam_intr: torch.Tensor,
-                cam_extr: torch.Tensor, master_joints_3d: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                cam_extr: torch.Tensor, master_joints_3d: Optional[torch.Tensor] = None,
+                ref_draws: Optional[RefDraws] = None) -> Dict[str, torch.Tensor]:
         """images (B, V, H, W, 3), view_mask (B, V) bool, cam_intr (B, V, 3, 3),
-        cam_extr (B, V, 4, 4) camera->master, master_joints_3d (B, 21, 3) used as
-        the reference joints of single-view samples."""
+        cam_extr (B, V, 4, 4) camera->master, master_joints_3d (B, 21, 3): in
+        eval the reference joints of single-view samples, in training the
+        ground truth that ``ref_draws`` (:func:`draw_ref_noise`) jitter."""
+        mixed = self.compute_dtype not in (None, self.head.input_proj.weight.dtype)
+        with (torch.autocast(images.device.type, dtype=self.compute_dtype) if mixed
+              else contextlib.nullcontext()):
+            return self._forward(images, view_mask, cam_intr, cam_extr, master_joints_3d,
+                                 ref_draws)
+
+    def _forward(self, images, view_mask, cam_intr, cam_extr, master_joints_3d, ref_draws):
         B, V, H, W, _ = images.shape
         dt = self.head.input_proj.weight.dtype
         imgs = images.reshape(B * V, H, W, 3).to(dt).permute(0, 3, 1, 2)
@@ -55,14 +96,21 @@ class POEMNet(nn.Module):
         scale = torch.tensor([W, H], dtype=torch.float32, device=images.device)
         uv_coord_im = (uv_coord * scale).reshape(B, V, self.num_joints, 2)
 
-        tri = triangulate_dlt(uv_coord_im, cam_intr.float(), invert_rigid(cam_extr.float()),
-                              view_mask)
-        if master_joints_3d is not None:
+        if self.training:
+            if master_joints_3d is None or ref_draws is None:
+                raise ValueError("the train forward needs master_joints_3d and ref_draws")
+            ref_joints = jitter_reference_joints(
+                master_joints_3d, tuple(d.to(images.device) for d in ref_draws),
+                self.ref_noise, self.center_idx)
+        elif master_joints_3d is not None:
+            tri = triangulate_dlt(uv_coord_im, cam_intr.float(),
+                                  invert_rigid(cam_extr.float()), view_mask)
             n_views = view_mask.float().sum(1)
             ref_joints = torch.where((n_views <= 1.0)[:, None, None],
                                      master_joints_3d.float(), tri)
         else:
-            ref_joints = tri
+            ref_joints = triangulate_dlt(uv_coord_im, cam_intr.float(),
+                                         invert_rigid(cam_extr.float()), view_mask)
 
         preds = dict(self.head(mlvl.reshape(B, V, *mlvl.shape[1:]), view_mask, cam_intr,
                                cam_extr, ref_joints, inp_res=(W, H)))
@@ -149,13 +197,18 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                       device: torch.device | str = "cpu",
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      param_dtype: Optional[torch.dtype] = None
                       ) -> Tuple[POEMNet, Dict[str, Any]]:
     """Build the HRNet POEMNet from the ``MODEL`` section of a release config.
 
     Weights come from ``generator`` (seed 0 if None); load a converted
-    ``state_dict`` over them for real weights. Returns (model in eval mode on
-    ``device`` in ``dtype``, aux with the BPS basis and the template)."""
+    ``state_dict`` over them for real weights. ``dtype`` is the compute
+    dtype and ``param_dtype`` (default ``dtype``) the parameters' one:
+    float32 parameters with bfloat16 compute is the training setting, as
+    flax keeps it.
+    Returns (model in eval mode on ``device``, aux with the BPS basis, the
+    template and the MANO joint regressor)."""
     bb_cfg, head_cfg = cfg["BACKBONE"], cfg["HEAD"]
     tr_cfg = head_cfg["TRANSFORMER"]
     if bb_cfg["TYPE"] != "HRNet":
@@ -193,12 +246,18 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                 bps_basis=bps, template_mesh=template, query_anchor_idx=q_anchor_idx,
                 pt_anchor_idx=pt_anchor_idx, anchor_xyz=anchor_xyz,
                 n_blocks=tr_cfg["N_BLOCKS"], num_heads=tr_cfg["NUM_ATTENTION_HEADS"],
-                n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"]),
+                n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"],
+                dropout=tr_cfg.get("DROPOUT", 0.1)),
+            num_joints=cfg.get("DATA_PRESET", {}).get("NUM_JOINTS", 21),
+            center_idx=cfg.get("DATA_PRESET", {}).get("CENTER_IDX", 0),
+            ref_noise=float(cfg.get("REF_NOISE", 0.01)),
+            compute_dtype=dtype if param_dtype not in (None, dtype) else None,
         )
     model = model.to_empty(device="cpu")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_parameters(model, generator)
-    model = model.to(device=device, dtype=dtype).eval()
-    aux = {"bps_basis": bps, "template_mesh": template, "transformer_center_idx": center}
+    model = model.to(device=device, dtype=param_dtype or dtype).eval()
+    aux = {"bps_basis": bps, "template_mesh": template, "transformer_center_idx": center,
+           "j_regressor": ManoLayer().j_regressor}
     return model, aux

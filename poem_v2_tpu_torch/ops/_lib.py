@@ -36,6 +36,8 @@ _SIGNATURES = {
     "poem_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "poem_vector_attention": [_I, _I] + [_P] * 17 + [_I] * 5 + [_P],
     "poem_dense_cross_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "poem_dense_cross_attention_bwd": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "poem_scatter_add_rows": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "poem_grid_sample_points": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -130,3 +132,13 @@ def dtype_code(t) -> int:
     if t.dtype == torch.bfloat16:
         return DTYPE_BF16
     raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+
+
+def no_grad_guard(name: str, *ts) -> None:
+    """Raise where autograd would need a backward that the kernel ``name`` lacks:
+    its output is a fresh tensor, so handing it back would silently cut the graph."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad(), "
+                           "or through its autograd Function")

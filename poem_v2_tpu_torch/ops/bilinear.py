@@ -5,7 +5,8 @@ with the semantics of ``F.grid_sample(bilinear, align_corners=False,
 padding_mode="zeros")`` on a flat point list and exact float32 tap
 weights, as the JAX package's ``grid_sample_points_matmul`` computes them.
 CPU tensors take :func:`plain_grid_sample_points`, CUDA tensors the kernel
-in ``csrc/bilinear.cu``.
+in ``csrc/bilinear.cu``, which has no backward (eval only: training samples
+with :func:`..sampling.grid_sample_points_matmul`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor
         raise ValueError(f"coords must be (B, N, 2) with B={B}, got {tuple(coords.shape)}")
     if coords.device != feat.device:
         raise ValueError("feat and coords must be on one device")
+    _lib.no_grad_guard("grid_sample_points", feat, coords)
     N = coords.shape[1]
     fc = feat.contiguous()
     cc = coords.float().contiguous()

@@ -1,16 +1,20 @@
-"""Fused exact-KNN and fixed-anchor vector attention (kernels K1, K2).
+"""Fused exact-KNN and fixed-anchor vector attention (kernels K1, K2, K6).
 
 Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
 
 * :func:`fused_knn_vector_attention` <- ``fused_knn_vector_attention``
   (exact K-NN selection + neighbour gather + vector attention);
 * :func:`fused_anchor_vector_attention` <- ``fused_anchor_vector_attention``
-  (the same attention against fixed, pre-projected anchors).
+  (the same attention against fixed, pre-projected anchors);
+* :func:`knn_vector_attention_trainable` <- ``knn_vector_attention_trainable``
+  (K6: K1's forward with its indices saved; the backward is the gradient of
+  :func:`attention_from_idx`, whose feature gather scatters back by K7).
 
 Each wrapper takes CPU tensors to its plain PyTorch version and CUDA
 tensors to the hand-written kernel in ``csrc/knn_attn.cu``; there is no
 fallback from one to the other. ``<wrapper>.launches`` counts kernel
-launches.
+launches. K1 and K2 have no backward: on the card they raise when autograd
+would need one.
 
 Numerics follow the TPU kernel: operands of every matrix product are cast
 to the compute dtype (that of ``q``), products accumulate in float32,
@@ -25,6 +29,10 @@ from typing import Sequence
 import torch
 
 from . import _lib
+from .points import index_points
+from .remat import kernel_outputs
+from .scatter import index_points_mxu
+from .vector_attn import vector_attention_reference
 
 PACKED_MAX_POINTS = 4096  # the packed keys keep the column in 12 bits
 
@@ -169,6 +177,8 @@ def fused_knn_vector_attention(
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma)
     _check_shapes(D, n_neighbor)
+    _lib.no_grad_guard("fused_knn_vector_attention", q, query_xyz, pt_xyz, x_full, wk, wv,
+                   *fc_delta, *fc_gamma)
     dt = q.dtype
     L = _lib.lib()
     qxyz = query_xyz.float().contiguous()
@@ -210,6 +220,8 @@ def fused_anchor_vector_attention(
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda(q, query_xyz, k_anchor, v_anchor, anchor_xyz, *fc_delta, *fc_gamma)
     _check_shapes(D, A)
+    _lib.no_grad_guard("fused_anchor_vector_attention", q, query_xyz, k_anchor, v_anchor,
+                   anchor_xyz, *fc_delta, *fc_gamma)
     dt = q.dtype
     L = _lib.lib()
     axyz = anchor_xyz.float()
@@ -228,3 +240,75 @@ def fused_anchor_vector_attention(
 
 
 fused_anchor_vector_attention.launches = 0
+
+
+def attention_from_idx(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx):
+    """Vector attention gathered by precomputed indices, in q's dtype
+    (``pallas_knn_attn.py:_attention_from_idx``): the differentiable
+    recompute behind :func:`knn_vector_attention_trainable`'s backward.
+    Weights and features are cast to q's dtype here, so their gradients come
+    back in their own dtypes."""
+    dt = q.dtype
+    with torch.autocast(q.device.type, enabled=False):
+        x_g = index_points_mxu(x_full.to(dt), idx)  # (B, M, K, D); backward by K7
+        k_g = x_g @ wk.to(dt)
+        v_g = x_g @ wv.to(dt)
+        nn_xyz = index_points(pt_xyz, idx)  # (B, M, K, 3)
+        delta = query_xyz[:, :, None, :] - nn_xyz
+        return vector_attention_reference(
+            q, k_g, v_g, delta.to(dt), [p.to(dt) for p in fc_delta],
+            [p.to(dt) for p in fc_gamma])
+
+
+class _KnnVectorAttentionTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n_neighbor, q, query_xyz, pt_xyz, x_full, wk, wv, *mlps):
+        fc_delta, fc_gamma = mlps[:4], mlps[4:]
+
+        def run():
+            out, idx = fused_knn_vector_attention(q, query_xyz, pt_xyz, x_full, wk, wv,
+                                                  fc_delta, fc_gamma, n_neighbor,
+                                                  return_idx=True)
+            if q.device.type == "cuda":
+                knn_vector_attention_trainable.launches += 1
+            return out, idx
+
+        out, idx = kernel_outputs(run)
+        ctx.save_for_backward(q, query_xyz, pt_xyz, x_full, wk, wv, *mlps, idx)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        *inputs, idx = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+            out = attention_from_idx(*leaves[:6], leaves[6:10], leaves[10:], idx)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, dout.to(out.dtype),
+                                             allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None for t in leaves))
+
+
+def knn_vector_attention_trainable(
+    q: torch.Tensor,          # (B, M, D) w_qs(query_feat)
+    query_xyz: torch.Tensor,  # (B, M, 3)
+    pt_xyz: torch.Tensor,     # (B, N, 3)
+    x_full: torch.Tensor,     # (B, N, D) fc1 activations of the cloud
+    wk: torch.Tensor,         # (D, D)
+    wv: torch.Tensor,         # (D, D)
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+    n_neighbor: int = 32,
+) -> torch.Tensor:
+    """Training-path exact-KNN vector attention (K6); (B, M, D).
+
+    Forward: K1 with ``return_idx`` (the plain version on the CPU), which
+    selects exactly the neighbours eval selects. Backward: autograd through
+    :func:`attention_from_idx` at the saved indices, so the (B, M, N)
+    distances are never recomputed."""
+    return _KnnVectorAttentionTrainable.apply(n_neighbor, q, query_xyz, pt_xyz, x_full, wk, wv,
+                                              *fc_delta, *fc_gamma)
+
+
+knn_vector_attention_trainable.launches = 0

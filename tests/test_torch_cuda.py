@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from poem_v2_tpu_torch.ops import bilinear, cross_attn, knn_attn
+from poem_v2_tpu_torch.ops import bilinear, cross_attn, knn_attn, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +91,21 @@ def test_dense_cross_attention_head_dims(cuda, dtype, hd):
     _close(got, want, dtype)
 
 
+def test_dense_cross_attention_bf16_shapes_it_rejects(cuda):
+    """float32 takes head dim 48; bfloat16 raises there and on unaligned tensors."""
+    rs = np.random.RandomState(48)
+    q, k, v = (_mk(rs, 2, n, 4 * 48).to(cuda) for n in (40, 300, 300))
+    _close(cross_attn.dense_cross_attention(q, k, v, 4, 48 ** -0.5),
+           cross_attn.plain_dense_cross_attention(q, k, v, 4, 48 ** -0.5), torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        cross_attn.dense_cross_attention(*(t.bfloat16() for t in (q, k, v)), 4, 48 ** -0.5)
+    flat = _mk(rs, 2 * 40 * 256 + 1).to(cuda).bfloat16()
+    q = flat[1:].view(2, 40, 256)  # 2-byte offset: contiguous but not 16-byte aligned
+    k, v = (_mk(rs, 2, 300, 256).to(cuda).bfloat16() for _ in range(2))
+    with pytest.raises(ValueError, match="aligned"):
+        cross_attn.dense_cross_attention(q, k, v, 4, 0.125)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_grid_sample_points(cuda, dtype):
     rs = np.random.RandomState(5)
@@ -110,3 +125,140 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     assert bilinear.grid_sample_points.launches == before
     bilinear.grid_sample_points(feat.to(cuda), coords.to(cuda))  # CUDA: the kernel
     assert bilinear.grid_sample_points.launches == before + 1
+
+
+def _grads_close(got, want, dtype):
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_dense_cross_attention_backward_head_dims(cuda, dtype, hd):
+    """K3b against autograd through the plain version; N = 517 is no tile multiple."""
+    rs = np.random.RandomState(hd + 1)
+    B, M, N, nh = 2, 133, 517, 4
+    q, k, v, do = (_mk(rs, B, n, nh * hd).to(dtype) for n in (M, N, N, M))
+    want = cross_attn.plain_dense_cross_attention_bwd(q, k, v, do, nh, hd ** -0.5)
+    got = cross_attn.dense_cross_attention_bwd(*(t.to(cuda) for t in (q, k, v, do)), nh,
+                                               hd ** -0.5)
+    torch.cuda.synchronize()
+    _grads_close(got, want, dtype)
+
+
+def test_dense_cross_attention_function_grads(cuda):
+    """Gradients through the autograd Function on the card reach q, k and v."""
+    rs = np.random.RandomState(2)
+    q, k, v = (_mk(rs, 2, n, 256).to(cuda).requires_grad_() for n in (40, 300, 300))
+    out = cross_attn.dense_cross_attention(q, k, v, 4, 0.125)
+    grads = torch.autograd.grad((out * out).sum(), (q, k, v))
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad((cross_attn.plain_dense_cross_attention(qc, kc, vc, 4, 0.125) ** 2)
+                               .sum(), (qc, kc, vc))
+    _grads_close(grads, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_rows,lo,hi", [(4096, 0, 4096), (799, 0, 799), (799, 5, 6),
+                                          (4096, 100, 116)])
+def test_scatter_add_rows(cuda, dtype, n_rows, lo, hi):
+    """K7 against index_add_ (float32 on the CPU), with spread, all-duplicate
+    (one row takes every entry) and heavily duplicated indices; a repeat
+    launch gives the same bits."""
+    rs = np.random.RandomState(n_rows + lo)
+    B, M, K, D = 2, 799, 32, 256
+    g = _mk(rs, B, M, K, D).to(dtype)
+    idx = torch.from_numpy(rs.randint(lo, hi, (B, M, K)).astype(np.int32))
+    want = scatter.plain_scatter_add_rows(g, idx, n_rows)
+    got = scatter.scatter_add_rows(g.to(cuda), idx.to(cuda), n_rows)
+    again = scatter.scatter_add_rows(g.to(cuda), idx.to(cuda), n_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_knn_vector_attention_trainable_grads(cuda, dtype):
+    """K6: value and the gradients of all 14 inputs against the same Function
+    on the CPU (the plain K1 forward, autograd through the plain recompute,
+    the plain K7), which in float32 is autograd through K1's plain version.
+    fc_gamma's output bias shifts every neighbour of a channel alike, so its
+    exact gradient is 0: it is held to the scale of g1's gradient instead."""
+    rs = np.random.RandomState(9)
+    B, M, N, D, K = 2, 150, 600, 64, 16
+    s = 1 / math.sqrt(D)
+    args = [_mk(rs, B, M, D), _mk(rs, B, M, 3), _mk(rs, B, N, 3), _mk(rs, B, N, D),
+            _mk(rs, D, D, scale=s), _mk(rs, D, D, scale=s),
+            _mk(rs, 3, D), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1),
+            _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s),
+            _mk(rs, D, scale=0.1)]
+    args = [a.to(dtype) if i in (0, 3) else a for i, a in enumerate(args)]
+    ct = _mk(rs, B, M, D)
+
+    def run(ts):
+        ts = [t.clone().requires_grad_() for t in ts]
+        out = knn_attn.knn_vector_attention_trainable(*ts[:6], ts[6:10], ts[10:], n_neighbor=K)
+        return out, torch.autograd.grad((out.float() * ct.to(out.device)).sum(), ts)
+
+    want, gw = run(args)
+    got, gg = run([a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}[dtype]
+    for i, (g, w) in enumerate(zip(gg, gw)):
+        scale = float(gw[12 if i == 13 else i].float().abs().max())
+        assert float((g.float().cpu() - w.float()).abs().max()) <= tol * scale, i
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """K1 (eval form), K2 and K4 refuse to cut the graph."""
+    rs = np.random.RandomState(4)
+    D = 32
+    mlp = lambda d_in: [_mk(rs, d_in, D).to(cuda), _mk(rs, D).to(cuda), _mk(rs, D, D).to(cuda),
+                        _mk(rs, D).to(cuda)]
+    q = _mk(rs, 1, 10, D).to(cuda).requires_grad_()
+    xyz = _mk(rs, 1, 10, 3).to(cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        knn_attn.fused_knn_vector_attention(q, xyz, xyz, _mk(rs, 1, 10, D).to(cuda),
+                                            _mk(rs, D, D).to(cuda), _mk(rs, D, D).to(cuda),
+                                            mlp(3), mlp(D), n_neighbor=8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        knn_attn.fused_anchor_vector_attention(q, xyz, _mk(rs, 1, 8, D).to(cuda),
+                                               _mk(rs, 1, 8, D).to(cuda),
+                                               _mk(rs, 8, 3).to(cuda), mlp(3), mlp(D))
+    feat = _mk(rs, 1, 8, 8, D).to(cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        bilinear.grid_sample_points(feat, torch.zeros(1, 5, 2, device=cuda))
+    with torch.no_grad():
+        bilinear.grid_sample_points(feat, torch.zeros(1, 5, 2, device=cuda))
+
+
+def test_hrnet_float32_backward_conditioning(cuda):
+    """The float32 HRNet-W40 (GroupNorm) backward at 256 px against a float64
+    one on the CPU: the CPU and the card stay within 3e-2 of the largest
+    gradient. This bounds what chip_smoke's whole-step comparison of two
+    float32 backbones can ask; it is a property of the network at random
+    weights in float32, not of a kernel."""
+    import copy
+
+    from poem_v2_tpu_torch.models.backbones.hrnet import HRNet
+    from poem_v2_tpu_torch.models.poem import init_parameters
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = HRNet(width=40, norm="gn")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    img = torch.from_numpy(rs.uniform(-0.5, 0.5, (1, 3, 256, 256)).astype(np.float32))
+    cts = [torch.from_numpy(rs.randn(*o.shape).astype(np.float32)) for o in model(img)]
+
+    def grads(dev, dtype):
+        m = copy.deepcopy(model).to(dev, dtype)
+        loss = sum((o * c.to(dev, dtype)).sum() for o, c in zip(m(img.to(dev, dtype)), cts))
+        return [g.detach().cpu().double() for g in torch.autograd.grad(loss, list(m.parameters()))]
+
+    ref = grads("cpu", torch.float64)
+    scale = max(float(g.abs().max()) for g in ref)
+    for dev in ("cpu", cuda):
+        got = grads(dev, torch.float32)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        assert err <= 3e-2 * scale, (dev, err / scale)

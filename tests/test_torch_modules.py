@@ -195,7 +195,8 @@ def test_medium_config_matches_release_yaml():
 
     with open("configs/release/train_medium.yaml") as f:
         cfg = yaml.safe_load(f)
-    assert MEDIUM == {"MODEL": cfg["MODEL"], "DATA_PRESET": cfg["DATA_PRESET"]}
+    assert MEDIUM == {"TRAIN": cfg["TRAIN"], "MODEL": cfg["MODEL"],
+                      "DATA_PRESET": cfg["DATA_PRESET"]}
 
 
 def test_mano_arrays_and_template_match_jax():
