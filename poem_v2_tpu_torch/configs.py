@@ -1,10 +1,15 @@
-"""POEM-medium configuration (``configs/release/train_medium.yaml``) as Python data.
+"""The released POEM configurations (``configs/release/train_*.yaml``) as Python data.
 
-The ``TRAIN``, ``MODEL`` and ``DATA_PRESET`` sections of the release YAML, copied
-verbatim: the machine that runs the port has no YAML parser, so this dict
-is the port's source for the medium model. A CPU test checks it against
-the YAML file.
+``MEDIUM`` holds the ``TRAIN``, ``MODEL`` and ``DATA_PRESET`` sections of
+``train_medium.yaml``, copied verbatim: the machine that runs the port has
+no YAML parser, so these dicts are the port's source for the models.
+``SMALL``, ``LARGE`` and ``HUGE`` are medium at another width (128, 512,
+1024; huge also has its own schedule), ``MEDIUM_MANO`` is medium with the
+parametric (MANO pose and shape) output. A CPU test checks each against
+its YAML file.
 """
+
+import copy
 
 MEDIUM = {
     "TRAIN": {'MANUAL_SEED': 1,
@@ -66,3 +71,29 @@ MEDIUM = {
         'HEATMAP_SIZE': [32, 32],
         'HEATMAP_SIGMA': 2.0},
 }
+
+
+def _derive(width=None, train=None, transformer=None, loss=None):
+    """MEDIUM with the three width keys set to ``width`` and the given
+    ``TRAIN``, ``MODEL.HEAD.TRANSFORMER`` and ``MODEL.LOSS`` entries added."""
+    cfg = copy.deepcopy(MEDIUM)
+    head = cfg["MODEL"]["HEAD"]
+    if width is not None:
+        head["EMBED_DIMS"] = head["POINTS_FEAT_DIM"] = width
+        head["TRANSFORMER"]["INPUT_FEAT_DIM"] = width
+    cfg["TRAIN"].update(train or {})
+    head["TRANSFORMER"].update(transformer or {})
+    cfg["MODEL"]["LOSS"].update(loss or {})
+    return cfg
+
+
+SMALL = _derive(width=128)
+LARGE = _derive(width=512)
+HUGE = _derive(width=1024, train={"MANUAL_SEED": 2, "EPOCH": 15, "LR": 1e-5,
+                                  "SCHEDULER": "CosineLR", "LR_MIN": 1e-7})
+MEDIUM_MANO = _derive(transformer={"PARAMETRIC_OUTPUT": True, "TRANSFORMER_CENTER_IDX": 9},
+                      loss={"POSE_LOSS_WEIGHT": 0.001, "SHAPE_LOSS_WEIGHT": 0.0005})
+
+# the released tiers by the name of their YAML file (configs/release/train_<name>.yaml)
+RELEASE = {"small": SMALL, "medium": MEDIUM, "medium_MANO": MEDIUM_MANO, "large": LARGE,
+           "huge": HUGE}

@@ -27,7 +27,8 @@ class ManoOutput(NamedTuple):
 
 
 class ManoLayer:
-    """Stateless LBS callable over one MANO model's constants (float32, CPU)."""
+    """Stateless LBS callable over one MANO model's constants (float32). The
+    constants are made on the CPU and copied once to each device a pose comes from."""
 
     def __init__(self, model: Optional[ManoModel] = None, center_idx: Optional[int] = None):
         m = model if model is not None else default_mano()
@@ -40,23 +41,34 @@ class ManoLayer:
         self.j_regressor = t(m.j_regressor)
         self.lbs_weights = t(m.lbs_weights)
         self.parents = np.asarray(m.parents)
+        self._on_device = {}
+
+    def _constants(self, device: torch.device):
+        """(v_template, shapedirs, posedirs, j_regressor, lbs_weights) on ``device``."""
+        if device not in self._on_device:
+            self._on_device[device] = tuple(
+                t.to(device) for t in (self.v_template, self.shapedirs, self.posedirs,
+                                       self.j_regressor, self.lbs_weights))
+        return self._on_device[device]
 
     def __call__(self, pose_aa: torch.Tensor, betas: torch.Tensor) -> ManoOutput:
         """pose_aa (B, 48) axis-angle ([:, :3] global root), betas (B, 10)."""
         B = pose_aa.shape[0]
         pose = pose_aa.reshape(B, 16, 3)
-        v_shaped = self.v_template + torch.einsum("vcs,bs->bvc", self.shapedirs, betas)
-        j_rest = torch.einsum("jv,bvc->bjc", self.j_regressor, v_shaped)
+        v_template, shapedirs, posedirs, j_regressor, lbs_weights = self._constants(
+            pose_aa.device)
+        v_shaped = v_template + torch.einsum("vcs,bs->bvc", shapedirs, betas)
+        j_rest = torch.einsum("jv,bvc->bjc", j_regressor, v_shaped)
         rots = aa_to_rotmat(pose)
         eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
         pose_feat = (rots[:, 1:] - eye).reshape(B, -1)
-        v_posed = v_shaped + torch.einsum("vcp,bp->bvc", self.posedirs, pose_feat)
+        v_posed = v_shaped + torch.einsum("vcp,bp->bvc", posedirs, pose_feat)
         transforms = self._global_transforms(rots, j_rest)
         j_rest_h = torch.cat([j_rest, torch.zeros_like(j_rest[..., :1])], -1)
         correction = torch.einsum("bjik,bjk->bji", transforms, j_rest_h)
         rel = transforms - torch.cat([torch.zeros_like(transforms[..., :3]),
                                       correction[..., None]], dim=-1)
-        vert_t = torch.einsum("vj,bjik->bvik", self.lbs_weights, rel)
+        vert_t = torch.einsum("vj,bjik->bvik", lbs_weights, rel)
         v_h = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], -1)
         verts = torch.einsum("bvik,bvk->bvi", vert_t, v_h)[..., :3]
         joints16 = transforms[..., :3, 3]

@@ -1,11 +1,18 @@
 """Point-transformer vector attention blocks
 (counterpart of ``poem_v2_tpu/models/bricks/point_transformer.py``).
 
-In eval the attention core runs in kernel K1 (exact KNN neighbourhoods)
-or K2 (fixed anchors, block 0). In training (``module.train()``) the KNN
-neighbourhoods run K6, whose backward scatters by K7, and the anchors take
-the plain path of the JAX package's training step: the full k/v
-projections gathered by the anchor indices, then
+With ``use_fused_knn`` (the default, the serving path) the attention core
+runs in eval in kernel K1 (exact KNN neighbourhoods) or K2 (fixed anchors,
+block 0); in training (``module.train()``) the KNN neighbourhoods run K6,
+whose backward scatters by K7, and the anchors take the gathered path.
+
+The gathered path (``use_fused_knn=False``, and the anchors in training)
+is the JAX blocks' un-fused one: exact ``knn_points`` (lowest index wins
+ties), one gather of the shared fc1 activations, ``w_ks`` / ``w_vs`` on the
+gathered tensor (for anchors: the full projections gathered by the anchor
+indices and broadcast over the queries), then kernel K8
+(:func:`~poem_v2_tpu_torch.ops.vector_attn.fused_vector_attention`, eval
+only) with ``use_fused``, else
 :func:`~poem_v2_tpu_torch.ops.vector_attn.vector_attention_reference`.
 ``w_qs``, ``fc1``, ``fc2`` and the projections are plain products around
 them, as in the JAX package.
@@ -21,7 +28,8 @@ from torch import nn
 
 from ...ops.knn_attn import (fused_anchor_vector_attention, fused_knn_vector_attention,
                              knn_vector_attention_trainable)
-from ...ops.vector_attn import vector_attention_reference
+from ...ops.points import index_points, knn_points
+from ...ops.vector_attn import fused_vector_attention, vector_attention_reference
 
 
 class RawDense(nn.Module):
@@ -39,9 +47,11 @@ class RawDense(nn.Module):
 class _VectorAttention(nn.Module):
     """Parameters shared by both blocks: w_qs, w_ks, w_vs, fc_delta, fc_gamma, fc1, fc2."""
 
-    def __init__(self, d_points: int, d_model: int, k: int, fc1_in: int, qs_in: int):
+    def __init__(self, d_points: int, d_model: int, k: int, fc1_in: int, qs_in: int,
+                 use_fused: bool = False, use_fused_knn: bool = True):
         super().__init__()
         self.k = k
+        self.use_fused, self.use_fused_knn = use_fused, use_fused_knn
         self.fc1 = nn.Linear(fc1_in, d_model)
         self.fc2 = nn.Linear(d_model, d_points)
         self.w_qs = nn.Linear(qs_in, d_model, bias=False)
@@ -61,39 +71,41 @@ class _VectorAttention(nn.Module):
 
     def attend(self, q, query_xyz, cloud_xyz, x_cloud, anchor_idx, anchor_xyz):
         fc_delta, fc_gamma = self.mlps()
-        if anchor_idx is None:
+        if self.use_fused_knn and anchor_idx is None:
             knn = knn_vector_attention_trainable if self.training else fused_knn_vector_attention
             return knn(q, query_xyz, cloud_xyz, x_cloud, self.w_ks.kernel, self.w_vs.kernel,
                        fc_delta, fc_gamma, n_neighbor=self.k)
-        a_xyz = anchor_xyz if anchor_xyz is not None else cloud_xyz[:, anchor_idx]
-        if self.training:
-            return self._anchor_attention_train(q, query_xyz, x_cloud, anchor_idx, a_xyz,
-                                                fc_delta, fc_gamma)
-        x_a = x_cloud[:, anchor_idx]
-        return fused_anchor_vector_attention(
-            q, query_xyz, self.w_ks(x_a), self.w_vs(x_a), a_xyz, fc_delta, fc_gamma)
-
-    def _anchor_attention_train(self, q, query_xyz, x_cloud, anchor_idx, a_xyz, fc_delta,
-                                fc_gamma):
-        """Every query attends to the same A anchors, in q's dtype
-        (point_transformer.py:207-210, 221-222, 302-305)."""
         B, M, D = q.shape
-        A = anchor_idx.shape[0]
-        a_xyz = a_xyz if a_xyz.dim() == 3 else a_xyz[None].expand(B, A, 3)
-        k_g = self.w_ks(x_cloud)[:, anchor_idx][:, None].expand(B, M, A, D)
-        v_g = self.w_vs(x_cloud)[:, anchor_idx][:, None].expand(B, M, A, D)
-        delta = query_xyz[:, :, None] - a_xyz[:, None]
+        if anchor_idx is None:
+            _, idx, nn_xyz = knn_points(query_xyz, cloud_xyz, self.k)
+            x_g = index_points(x_cloud, idx)
+            k_g, v_g = self.w_ks(x_g), self.w_vs(x_g)
+        else:
+            A = anchor_idx.shape[0]
+            a_xyz = anchor_xyz if anchor_xyz is not None else cloud_xyz[:, anchor_idx]
+            if self.use_fused_knn and not self.training:
+                x_a = x_cloud[:, anchor_idx]
+                return fused_anchor_vector_attention(
+                    q, query_xyz, self.w_ks(x_a), self.w_vs(x_a), a_xyz, fc_delta, fc_gamma)
+            # every query attends to the same A anchors (point_transformer.py:207-210, 302-305)
+            a_xyz = a_xyz if a_xyz.dim() == 3 else a_xyz[None].expand(B, A, 3)
+            nn_xyz = a_xyz[:, None].expand(B, M, A, 3)
+            k_g = self.w_ks(x_cloud)[:, anchor_idx][:, None].expand(B, M, A, D)
+            v_g = self.w_vs(x_cloud)[:, anchor_idx][:, None].expand(B, M, A, D)
+        delta = query_xyz[:, :, None] - nn_xyz
         dt = q.dtype
-        return vector_attention_reference(
-            q, k_g.to(dt), v_g.to(dt), delta.to(dt), [p.to(dt) for p in fc_delta],
-            [p.to(dt) for p in fc_gamma])
+        attention = fused_vector_attention if self.use_fused else vector_attention_reference
+        return attention(q, k_g.to(dt), v_g.to(dt), delta.to(dt), [p.to(dt) for p in fc_delta],
+                         [p.to(dt) for p in fc_gamma])
 
 
 class PtSelfAttnBlock(_VectorAttention):
     """Vector self-attention of a point set over its K nearest points (or the anchors)."""
 
-    def __init__(self, d_points: int, d_model: int, k: int):
-        super().__init__(d_points, d_model, k, fc1_in=d_points, qs_in=d_model)
+    def __init__(self, d_points: int, d_model: int, k: int, use_fused: bool = False,
+                 use_fused_knn: bool = True):
+        super().__init__(d_points, d_model, k, fc1_in=d_points, qs_in=d_model,
+                         use_fused=use_fused, use_fused_knn=use_fused_knn)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 anchor_idx: Optional[torch.Tensor] = None,
@@ -106,8 +118,10 @@ class PtSelfAttnBlock(_VectorAttention):
 class PtCrossAttnBlock(_VectorAttention):
     """Vector cross-attention of queries over their K nearest cloud points (or the anchors)."""
 
-    def __init__(self, d_points: int, d_model: int, k: int):
-        super().__init__(d_points, d_model, k, fc1_in=d_model, qs_in=d_points)
+    def __init__(self, d_points: int, d_model: int, k: int, use_fused: bool = False,
+                 use_fused_knn: bool = True):
+        super().__init__(d_points, d_model, k, fc1_in=d_model, qs_in=d_points,
+                         use_fused=use_fused, use_fused_knn=use_fused_knn)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor, query_xyz: torch.Tensor,
                 query_feat: torch.Tensor, anchor_idx: Optional[torch.Tensor] = None,

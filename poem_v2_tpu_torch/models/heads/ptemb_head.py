@@ -1,12 +1,15 @@
-"""POEM generalized head, non-parametric
+"""POEM generalized head
 (counterpart of ``poem_v2_tpu/models/heads/ptemb_head.py``; no PETR, no v3 decoder).
 
 The 4096-point BPS cloud around reference joint 9 is projected into every
 view, sampled from the positional-encoded feature maps (kernel K4 in eval;
 in training the differentiable interpolation-matrix sampler, with the grid
 and the weights in the compute dtype, as the JAX head trains), reordered by
-the reference's ``.view(1, -1, V, C)`` scramble (the plain row gather),
-merged across views, and decoded by the point-embedded decoder.
+the reference's ``.view(1, -1, V, C)`` scramble (a reshape when every sample
+has all its views; else kernel K5 in eval and the plain row gather in
+training), merged across views, and decoded by the point-embedded decoder.
+With ``parametric_output`` the final block's coordinates are replaced by
+the MANO surface of the regressed pose and shape.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import torch
 from torch import nn
 
 from ...geometry.camera import project_world_to_pixel
+from ...geometry.rotations import rot6d_to_aa
 from ...ops.bilinear import grid_sample_points
 from ...ops.sampling import grid_sample_points_matmul, pixel_to_grid
+from ...ops.scramble import plain_scrambled_merge_gather, scrambled_merge_gather
 from ..bricks.attention import MLP
 from ..decoder import PtEmbedDecoder
 from ..positional import sine_positional_encoding_3d_factors
@@ -83,20 +88,19 @@ class MergeFeaturesMV(nn.Module):
         return torch.where((n_views <= 1.0)[:, None, None], sv, mv)
 
 
-def scramble_views(a_flat: torch.Tensor, n_val: torch.Tensor) -> torch.Tensor:
+def scramble_views(a_flat: torch.Tensor, n_val: torch.Tensor, fused: bool = False
+                   ) -> torch.Tensor:
     """The reference's merge-input scramble: (B, V, C, NS) sampled features ->
     (B, NS, V, C) with scr[b, i, j] = the C-run at (i * n_b + j) * C of the
     sample's flat (V, C, NS) layout. A batch whose samples all use V views
     is a plain reshape; a mixed batch gathers the rows (rows j >= n_b alias
-    later data and are masked out by the merge)."""
+    later data and are masked out by the merge): with ``fused`` (eval) by
+    kernel K5 on the card, else by the differentiable plain gather."""
     B, V, C, NS = a_flat.shape
     if bool((n_val == V).all()):
         return a_flat.reshape(B, NS, V, C)
-    a_rows = a_flat.reshape(B, V * NS, C)
-    r = (torch.arange(NS, device=a_flat.device)[None, :, None] * n_val[:, None, None]
-         + torch.arange(V, device=a_flat.device)[None, None, :])
-    r = torch.clamp_max(r, V * NS - 1).reshape(B, NS * V)
-    return torch.gather(a_rows, 1, r[..., None].expand(B, NS * V, C)).reshape(B, NS, V, C)
+    gather = scrambled_merge_gather if fused else plain_scrambled_merge_gather
+    return gather(a_flat.reshape(B, V * NS * C), n_val, V, C)
 
 
 class POEMGeneralizedHead(nn.Module):
@@ -111,8 +115,12 @@ class POEMGeneralizedHead(nn.Module):
                  pt_anchor_idx: Optional[np.ndarray] = None,
                  anchor_xyz: Optional[np.ndarray] = None,
                  n_blocks: int = 3, num_heads: int = 4, n_neighbor: int = 32,
-                 n_neighbor_query: int = 32, dropout: float = 0.1):
+                 n_neighbor_query: int = 32, dropout: float = 0.1,
+                 parametric_output: bool = False, mano_layer=None):
         super().__init__()
+        if parametric_output and mano_layer is None:
+            raise ValueError("parametric_output needs the MANO layer")
+        self.parametric_output, self.mano_layer = parametric_output, mano_layer
         self.embed_dims, self.nsample, self.radius = embed_dims, nsample, radius
         self.pe_num_feats, self.center_idx = pe_num_feats, center_idx
         self.input_proj = nn.Conv2d(in_channels, embed_dims, 1)
@@ -120,7 +128,8 @@ class POEMGeneralizedHead(nn.Module):
         self.merge_feature = MergeFeaturesMV(embed_dims)
         self.query_feat_embedding = nn.Parameter(torch.empty(num_query, pt_feat_dim))
         self.transformer = PtEmbedDecoder(n_blocks, pt_feat_dim, num_heads, n_neighbor,
-                                          n_neighbor_query, dropout)
+                                          n_neighbor_query, dropout, parametric_output,
+                                          num_query)
         # float32 geometry constants, kept out of the state dict and of dtype casts
         self._np_consts = {
             "bps": np.asarray(bps_basis, np.float32),
@@ -141,7 +150,9 @@ class POEMGeneralizedHead(nn.Module):
     def forward(self, mlvl_feat: torch.Tensor, view_mask: torch.Tensor, cam_intr: torch.Tensor,
                 cam_extr: torch.Tensor, ref_joints: torch.Tensor,
                 inp_res: Tuple[int, int] = (256, 256)) -> Dict[str, torch.Tensor]:
-        """mlvl_feat (B, V, H, W, C_in) channels-last -> {"all_coords_preds": (n_blocks, B, 799, 3)}."""
+        """mlvl_feat (B, V, H, W, C_in) channels-last -> {"all_coords_preds":
+        (n_blocks, B, 799, 3)}, with ``parametric_output`` also "pred_pose"
+        (B, 16, 3) axis-angle and "pred_shape" (B, 10)."""
         B, V, H, W, _ = mlvl_feat.shape
         C, NS = self.embed_dims, self.nsample
         c = self.consts(mlvl_feat.device)
@@ -164,13 +175,26 @@ class POEMGeneralizedHead(nn.Module):
             feats_flat = grid_sample_points(x.reshape(B * V, H, W, C), grid)
         bps_feats = feats_flat.reshape(B, V, NS, C)
         n_val = view_mask.to(torch.int64).sum(1)
-        scr = scramble_views(bps_feats.transpose(2, 3), n_val)
+        scr = scramble_views(bps_feats.transpose(2, 3), n_val, fused=not self.training)
         merged = self.merge_feature(scr.transpose(1, 2), view_mask)
 
         query_feat = self.query_feat_embedding[None].expand(B, -1, -1)
         pt_xyz = (c["bps"] / self.radius)[None].expand(B, NS, 3)
         query_xyz = (c["template"] / self.radius)[None].expand(B, -1, 3)
-        coords = self.transformer(query_xyz, query_feat, pt_xyz, merged,
-                                  c["q_anchor_idx"], c["pt_anchor_idx"], c.get("anchor_xyz"))
+        coords, pose6d, shape = self.transformer(
+            query_xyz, query_feat, pt_xyz, merged, c["q_anchor_idx"], c["pt_anchor_idx"],
+            c.get("anchor_xyz"))
         coords = torch.nan_to_num(coords.float())
-        return {"all_coords_preds": coords * self.radius + ref_center[None, :, None, :]}
+        centre = ref_center[None, :, None, :]
+        if not self.parametric_output:
+            return {"all_coords_preds": coords * self.radius + centre}
+        # intermediate blocks are normalised; the final block is replaced by the
+        # MANO surface (metres, centred at the reference joint) plus the centre.
+        # Rotations and LBS stay float32, outside any autocast
+        with torch.autocast(mlvl_feat.device.type, enabled=False):
+            pose_aa = rot6d_to_aa(pose6d.float().reshape(B, 16, 6)).reshape(B, 48)
+            mano_out = self.mano_layer(pose_aa, shape.float())
+        mano_mesh = torch.cat([mano_out.joints, mano_out.verts], dim=1)  # (B, 799, 3)
+        all_coords = torch.cat([coords[:-1] * self.radius + centre, mano_mesh[None] + centre], 0)
+        return {"all_coords_preds": all_coords, "pred_pose": pose_aa.reshape(B, 16, 3),
+                "pred_shape": shape.float()}

@@ -5,7 +5,9 @@ images (B, V, H, W, 3) with a (B, V) view mask
   -> integral 2D joints -> reference joints: eval = masked DLT of the 2D
      joints; train (``module.train()``) = ground truth jittered by draws
      the caller passes (:func:`draw_ref_noise`)
-  -> POEM generalized head -> per-block 799-point coordinates.
+  -> POEM generalized head -> per-block 799-point coordinates (with
+     ``PARAMETRIC_OUTPUT`` the last block's are the MANO surface of the
+     regressed ``pred_pose`` / ``pred_shape``).
 """
 
 from __future__ import annotations
@@ -196,7 +198,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
-                      device: torch.device | str = "cpu",
+                      device: torch.device | str = "cuda",
                       generator: Optional[torch.Generator] = None,
                       param_dtype: Optional[torch.dtype] = None
                       ) -> Tuple[POEMNet, Dict[str, Any]]:
@@ -206,23 +208,31 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
     ``state_dict`` over them for real weights. ``dtype`` is the compute
     dtype and ``param_dtype`` (default ``dtype``) the parameters' one:
     float32 parameters with bfloat16 compute is the training setting, as
-    flax keeps it.
+    flax keeps it. ``device`` defaults to the card and there is no silent
+    move to the CPU: without a CUDA device this raises; pass ``"cpu"`` to
+    run the kernels' plain versions there.
     Returns (model in eval mode on ``device``, aux with the BPS basis, the
-    template and the MANO joint regressor)."""
+    template, the MANO joint regressor and ``parametric_output``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_poem_model targets a CUDA device and none is available; "
+                           'pass device="cpu" to build the model there')
     bb_cfg, head_cfg = cfg["BACKBONE"], cfg["HEAD"]
     tr_cfg = head_cfg["TRANSFORMER"]
     if bb_cfg["TYPE"] != "HRNet":
         raise NotImplementedError(f"backbone {bb_cfg['TYPE']!r} is not ported yet (HRNet only)")
-    if tr_cfg.get("PARAMETRIC_OUTPUT", False) or tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3":
-        raise NotImplementedError("parametric (MANO) output and PtEmbedTRv3 are not ported yet")
+    if tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3":
+        raise NotImplementedError("the PtEmbedTRv3 decoder is not ported yet")
     if head_cfg.get("PETR_EMBEDDING", False):
         raise NotImplementedError("the PETR frustum embedding is not ported yet")
     norm = bb_cfg.get("NORM", "gn")
     nsample, radius = head_cfg["N_SAMPLE"], head_cfg["RADIUS_SAMPLE"]
     center = tr_cfg.get("TRANSFORMER_CENTER_IDX", 9)
+    parametric = bool(tr_cfg.get("PARAMETRIC_OUTPUT", False))
 
     bps, anchor_xyz, anchor_idx = load_static_assets(head_cfg, nsample, radius)
-    mano_out = ManoLayer(center_idx=center)(torch.zeros(1, 48), torch.zeros(1, 10))
+    mano_layer = ManoLayer(center_idx=center)
+    mano_out = mano_layer(torch.zeros(1, 48), torch.zeros(1, 10))
     template = torch.cat([mano_out.joints, mano_out.verts], 1)[0].numpy()  # (799, 3)
     if anchor_idx is not None:
         q_anchor_idx = pt_anchor_idx = anchor_idx
@@ -247,7 +257,8 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                 pt_anchor_idx=pt_anchor_idx, anchor_xyz=anchor_xyz,
                 n_blocks=tr_cfg["N_BLOCKS"], num_heads=tr_cfg["NUM_ATTENTION_HEADS"],
                 n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"],
-                dropout=tr_cfg.get("DROPOUT", 0.1)),
+                dropout=tr_cfg.get("DROPOUT", 0.1), parametric_output=parametric,
+                mano_layer=mano_layer if parametric else None),
             num_joints=cfg.get("DATA_PRESET", {}).get("NUM_JOINTS", 21),
             center_idx=cfg.get("DATA_PRESET", {}).get("CENTER_IDX", 0),
             ref_noise=float(cfg.get("REF_NOISE", 0.01)),
@@ -259,5 +270,5 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
     init_parameters(model, generator)
     model = model.to(device=device, dtype=param_dtype or dtype).eval()
     aux = {"bps_basis": bps, "template_mesh": template, "transformer_center_idx": center,
-           "j_regressor": ManoLayer().j_regressor}
+           "parametric_output": parametric, "j_regressor": mano_layer.j_regressor}
     return model, aux

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``poem_v2_tpu_torch/csrc``).
 
-The kernels have a plain C interface and are compiled with ``nvcc`` into
-one shared library, loaded with ``ctypes``. The build runs at first use,
+The kernels have a plain C interface and are compiled with ``nvcc`` (one
+process per source, side by side) into one shared library, loaded with
+``ctypes``. The build runs at first use,
 from the sources in the checkout, into ``poem_v2_tpu_torch/_build/``
 (git-ignored); the library's file name carries a hash of the sources, so
 an edited source is rebuilt and a stale library is never loaded.
@@ -23,10 +24,9 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = [*_ARCH, "-shared"]
 
 DTYPE_F32, DTYPE_BF16 = 0, 1
 
@@ -34,7 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "poem_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "poem_vector_attention": [_I, _I] + [_P] * 17 + [_I] * 5 + [_P],
+    "poem_vector_attention": [_I, _I] + [_P] * 18 + [_I] * 5 + [_P],
+    "poem_scramble_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "poem_dense_cross_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "poem_dense_cross_attention_bwd": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
     "poem_scatter_add_rows": [_I] + [_P] * 6 + [_I] * 4 + [_P],
@@ -75,7 +76,8 @@ def _nvcc() -> str:
 
 
 def build() -> KernelLibrary:
-    """Compile ``csrc/*.cu`` into ``_build/libpoem_kernels_<hash>.so`` if absent."""
+    """Compile ``csrc/*.cu`` into ``_build/libpoem_kernels_<hash>.so`` if absent:
+    one ``nvcc -c`` per source, all started together, then one link."""
     srcs = _sources()
     h = hashlib.sha256()
     for p in srcs:
@@ -87,22 +89,33 @@ def build() -> KernelLibrary:
     so = os.path.join(BUILD_DIR, f"libpoem_kernels_{digest}.so")
     log_path = so + ".log"
     if not os.path.exists(so):
+        nvcc = _nvcc()
         cu = [p for p in srcs if p.endswith(".cu")]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, os.path.basename(p)[:-3] + ".o") for p in cu]
+            # each compiler writes to its own file: a full pipe would stall it
+            procs = []
+            for p, o in zip(cu, objs):
+                with open(o + ".log", "w") as f:
+                    procs.append(subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, p],
+                        stdout=f, stderr=subprocess.STDOUT))
+            codes = [proc.wait() for proc in procs]
+            logs = []
+            for o in objs:
+                with open(o + ".log") as f:
+                    logs.append(f.read())
+            failed = [f"{p}:\n{log}" for p, code, log in zip(cu, codes, logs) if code]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            out = os.path.join(tmp, "lib.so")
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", out, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
             with open(log_path, "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+                f.write("".join(logs))
+            os.replace(out, so)
     log = open(log_path).read() if os.path.exists(log_path) else ""
     return KernelLibrary(so, log)
 

@@ -7,6 +7,14 @@ head, no mask, no dropout. :func:`dense_cross_attention` is a
 CPU tensors take the plain versions (:func:`plain_dense_cross_attention`
 and autograd through it), CUDA tensors the kernels in
 ``csrc/cross_attn.cu``; there is no fallback from one to the other.
+
+Widths: the kernels take q (B, M, H), k and v (B, N, H) on one CUDA device
+with H divisible by ``num_heads``. In bfloat16 (tensor-core tiles) the head
+dim H / num_heads must be 32, 64, 128 or 256, the four released tiers' at 4
+heads, and every tensor 16-byte aligned; in float32 any head dim from 32 to
+256 in steps of 16. The wrappers raise ``ValueError`` for anything else and
+``TypeError`` for another dtype; the raw forward raises ``RuntimeError``
+under autograd (use :func:`dense_cross_attention`, whose backward is K3b).
 """
 
 from __future__ import annotations

@@ -16,6 +16,13 @@ fallback from one to the other. ``<wrapper>.launches`` counts kernel
 launches. K1 and K2 have no backward: on the card they raise when autograd
 would need one.
 
+Widths: the kernels take float32 or bfloat16 tensors with D a multiple of
+4 up to 1024 (the released tiers use 128, 256, 512 and 1024) and a
+neighbour or anchor count K with 32 % K == 0 (K at most the cloud's size);
+the wrappers raise ``ValueError`` for anything else, ``TypeError`` for
+another dtype. The selection takes any cloud size (packed 12-bit-column
+keys up to 4096 points, argmin rounds above).
+
 Numerics follow the TPU kernel: operands of every matrix product are cast
 to the compute dtype (that of ``q``), products accumulate in float32,
 biases, the softmax and the (v + pos) aggregate stay float32.
@@ -23,7 +30,6 @@ biases, the softmax and the (v + pos) aggregate stay float32.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -32,7 +38,8 @@ from . import _lib
 from .points import index_points
 from .remat import kernel_outputs
 from .scatter import index_points_mxu
-from .vector_attn import vector_attention_reference
+from .vector_attn import (_mm, check_attention_shapes, check_one_device,
+                          vector_attention_plain, vector_attention_reference)
 
 PACKED_MAX_POINTS = 4096  # the packed keys keep the column in 12 bits
 
@@ -73,32 +80,6 @@ def knn_select_plain(query_xyz: torch.Tensor, pt_xyz: torch.Tensor, k: int) -> t
     return torch.sort(d2, dim=-1, stable=True).indices[..., :k].to(torch.int32)
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """x @ w with both operands rounded to ``dt``, accumulated in float32."""
-    return x.to(dt).float() @ w.to(dt).float()
-
-
-def vector_attention_plain(
-    q: torch.Tensor,         # (B, M, D)
-    k: torch.Tensor,         # (B, M, K, D) float32 keys
-    v: torch.Tensor,         # (B, M, K, D) float32 values
-    delta: torch.Tensor,     # (B, M, K, 3) float32 q_xyz - nn_xyz
-    fc_delta: Sequence[torch.Tensor],
-    fc_gamma: Sequence[torch.Tensor],
-) -> torch.Tensor:
-    """The attention both kernels compute, on gathered neighbours; (B, M, D) in q's dtype."""
-    dt = q.dtype
-    w1, b1, w2, b2 = fc_delta
-    g0, c0, g1, c1 = fc_gamma
-    t1 = torch.relu(_mm(delta, w1, dt) + b1.to(dt).float())
-    pos = _mm(t1, w2, dt) + b2.to(dt).float()
-    x = q.float()[:, :, None] - k + pos
-    h = torch.relu(_mm(x, g0, dt) + c0.to(dt).float())
-    g = (_mm(h, g1, dt) + c1.to(dt).float()) * (1.0 / math.sqrt(q.shape[-1]))
-    attn = torch.softmax(g, dim=-2)
-    return torch.sum(attn * (v + pos), dim=-2).to(dt)
-
-
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
     B, M, K = idx.shape
@@ -137,20 +118,6 @@ def _weights(dt, tensors):
     return [t.to(dt).contiguous() for t in tensors]
 
 
-def _check_shapes(D: int, rows: int) -> None:
-    """What csrc/knn_attn.cu takes: D <= 256, D % 4 == 0, rows per query dividing 32."""
-    if D > 256 or D % 4 or 32 % rows:
-        raise ValueError(f"the CUDA kernel takes D <= 256 (D % 4 == 0) and 32 % K == 0, "
-                         f"got D={D}, K={rows}")
-
-
-def _check_cuda(*ts):
-    dev = ts[0].device
-    for t in ts:
-        if t.device != dev:
-            raise ValueError(f"all tensors must be on {dev}, got one on {t.device}")
-
-
 def fused_knn_vector_attention(
     q: torch.Tensor,          # (B, M, D) w_qs(query_feat)
     query_xyz: torch.Tensor,  # (B, M, 3)
@@ -173,10 +140,8 @@ def fused_knn_vector_attention(
     if q.device.type == "cpu":
         return plain_fused_knn_vector_attention(
             q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, n_neighbor, return_idx)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma)
-    _check_shapes(D, n_neighbor)
+    check_one_device(q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma)
+    check_attention_shapes(D, n_neighbor)
     _lib.no_grad_guard("fused_knn_vector_attention", q, query_xyz, pt_xyz, x_full, wk, wv,
                    *fc_delta, *fc_gamma)
     dt = q.dtype
@@ -191,8 +156,8 @@ def fused_knn_vector_attention(
     s = _lib.stream_ptr(q)
     L.call("poem_knn_select", qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(),
            B, M, N, n_neighbor, int(use_packed_keys(N)), s)
-    L.call("poem_vector_attention", _lib.dtype_code(qc), 0, qc.data_ptr(), qxyz.data_ptr(),
-           pxyz.data_ptr(), idx.data_ptr(), xf.data_ptr(), None,
+    L.call("poem_vector_attention", _lib.dtype_code(qc), 0, qc.data_ptr(),
+           qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(), xf.data_ptr(), None, None,
            *[w.data_ptr() for w in ws], out.data_ptr(), B, M, N, D, n_neighbor, s)
     fused_knn_vector_attention.launches += 1
     return (out, idx) if return_idx else out
@@ -216,10 +181,8 @@ def fused_anchor_vector_attention(
     if q.device.type == "cpu":
         return plain_fused_anchor_vector_attention(
             q, query_xyz, k_anchor, v_anchor, anchor_xyz, fc_delta, fc_gamma)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_cuda(q, query_xyz, k_anchor, v_anchor, anchor_xyz, *fc_delta, *fc_gamma)
-    _check_shapes(D, A)
+    check_one_device(q, query_xyz, k_anchor, v_anchor, anchor_xyz, *fc_delta, *fc_gamma)
+    check_attention_shapes(D, A)
     _lib.no_grad_guard("fused_anchor_vector_attention", q, query_xyz, k_anchor, v_anchor,
                    anchor_xyz, *fc_delta, *fc_gamma)
     dt = q.dtype
@@ -232,8 +195,8 @@ def fused_anchor_vector_attention(
     va = v_anchor.to(dt).contiguous()
     ws = _weights(dt, [*fc_delta, *fc_gamma])
     out = torch.empty_like(qc)
-    L.call("poem_vector_attention", _lib.dtype_code(qc), 1, qc.data_ptr(), qxyz.data_ptr(),
-           axyz.data_ptr(), None, ka.data_ptr(), va.data_ptr(), None, None,
+    L.call("poem_vector_attention", _lib.dtype_code(qc), 1, qc.data_ptr(),
+           qxyz.data_ptr(), axyz.data_ptr(), None, ka.data_ptr(), va.data_ptr(), None, None, None,
            *[w.data_ptr() for w in ws], out.data_ptr(), B, M, A, D, A, _lib.stream_ptr(q))
     fused_anchor_vector_attention.launches += 1
     return out

@@ -10,11 +10,15 @@ import torch
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Pairwise squared L2, (..., M, 3) x (..., N, 3) -> (..., M, N), clamped at 0.
 
-    Written as ``|s|^2 + |d|^2 - 2 s.d`` with elementwise products, so no
-    TF32 matrix product can touch it."""
-    s2 = (src * src).sum(-1)[..., :, None]
-    d2 = (dst * dst).sum(-1)[..., None, :]
-    cross = (src[..., :, None, :] * dst[..., None, :, :]).sum(-1)
+    Written as ``|s|^2 + |d|^2 - 2 s.d`` with the three coordinates summed
+    one rounded elementwise operation at a time, in one order: no TF32 matrix
+    product can touch it, and the CPU and the card form the same values, so
+    both pick the same neighbours."""
+    sx, sy, sz = (src[..., :, None, i] for i in range(3))
+    dx, dy, dz = (dst[..., None, :, i] for i in range(3))
+    s2 = sx * sx + sy * sy + sz * sz
+    d2 = dx * dx + dy * dy + dz * dz
+    cross = sx * dx + sy * dy + sz * dz
     return torch.clamp_min(s2 + d2 - 2.0 * cross, 0.0)
 
 

@@ -1,12 +1,24 @@
-"""Vector attention on pre-gathered neighbours, in the dtype of its inputs.
+"""Vector attention on pre-gathered neighbours (kernel K8, and the training math).
 
-Counterpart of ``poem_v2_tpu/ops/pallas_vector_attn.py:vector_attention_reference``,
-the training math of the point-transformer blocks: every product, the
-softmax over the neighbour axis and the aggregate run in the inputs'
-dtype, with the 1/sqrt(D) scale cast to it, as the JAX function computes
-them. (The eval kernels' plain version, ``knn_attn.vector_attention_plain``,
-upcasts to float32 instead, as the TPU kernels do.) The fused kernel of
-that file (K8) is not ported yet.
+Counterparts of ``poem_v2_tpu/ops/pallas_vector_attn.py``:
+
+* :func:`fused_vector_attention` <- ``fused_vector_attention`` (K8): the
+  attention core of the point-transformer blocks on keys, values and
+  offsets the caller has gathered. CPU tensors take the plain version
+  :func:`vector_attention_plain`, CUDA tensors the kernel in
+  ``csrc/knn_attn.cu`` (the core it shares with K1 and K2); there is no
+  fallback from one to the other. ``fused_vector_attention.launches``
+  counts kernel launches. Eval only: it has no backward and raises on the
+  card when autograd would need one. It takes D a multiple of 4 up to 1024
+  and K with 32 % K == 0, float32 or bfloat16, and raises for others.
+  Numerics follow the TPU kernel: operands of the four products are cast to
+  the compute dtype (that of ``q``), products accumulate in float32, and
+  ``x = q - k + pos``, the softmax and the aggregate stay float32.
+* :func:`vector_attention_reference` <- ``vector_attention_reference``,
+  the training math: every product, the softmax over the neighbour axis
+  and the aggregate run in the inputs' dtype, with the 1/sqrt(D) scale
+  cast to it, as the JAX function computes them. In float32 the two agree
+  to rounding.
 """
 
 from __future__ import annotations
@@ -15,6 +27,10 @@ import math
 from typing import Sequence
 
 import torch
+
+from . import _lib
+
+MAX_D = 1024  # three [16][D] float32 buffers of a block must fit 227 KB
 
 
 def vector_attention_reference(
@@ -37,3 +53,87 @@ def vector_attention_reference(
         scale = float(torch.tensor(math.sqrt(k_g.shape[-1]), dtype=torch.float32).to(g.dtype))
         attn = torch.softmax(g / scale, dim=-2)
         return (attn * (v_g + pos)).sum(-2)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """x @ w with both operands rounded to ``dt``, accumulated in float32."""
+    return x.to(dt).float() @ w.to(dt).float()
+
+
+def vector_attention_plain(
+    q: torch.Tensor,         # (B, M, D)
+    k: torch.Tensor,         # (B, M, K, D) float32 keys
+    v: torch.Tensor,         # (B, M, K, D) float32 values
+    delta: torch.Tensor,     # (B, M, K, 3) float32 q_xyz - nn_xyz
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """The attention the kernels K1, K2 and K8 compute, on gathered
+    neighbours, with their roundings; (B, M, D) in q's dtype."""
+    dt = q.dtype
+    w1, b1, w2, b2 = fc_delta
+    g0, c0, g1, c1 = fc_gamma
+    t1 = torch.relu(_mm(delta, w1, dt) + b1.to(dt).float())
+    pos = _mm(t1, w2, dt) + b2.to(dt).float()
+    x = q.float()[:, :, None] - k + pos
+    h = torch.relu(_mm(x, g0, dt) + c0.to(dt).float())
+    g = (_mm(h, g1, dt) + c1.to(dt).float()) * (1.0 / math.sqrt(q.shape[-1]))
+    attn = torch.softmax(g, dim=-2)
+    return torch.sum(attn * (v + pos), dim=-2).to(dt)
+
+
+def check_attention_shapes(D: int, rows: int) -> None:
+    """What csrc/knn_attn.cu takes: D % 4 == 0 up to 1024, rows per query dividing 32."""
+    if D < 4 or D > MAX_D or D % 4 or rows < 1 or 32 % rows:
+        raise ValueError(f"the CUDA kernel takes D % 4 == 0 up to {MAX_D} and 32 % K == 0, "
+                         f"got D={D}, K={rows}")
+
+
+def check_one_device(*ts) -> None:
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"all tensors must be on {dev}, got one on {t.device}")
+
+
+def plain_fused_vector_attention(q, k_g, v_g, delta, fc_delta, fc_gamma):
+    """Plain PyTorch version of :func:`fused_vector_attention`."""
+    dt = q.dtype
+    return vector_attention_plain(q, k_g.to(dt).float(), v_g.to(dt).float(), delta, fc_delta,
+                                  fc_gamma)
+
+
+def fused_vector_attention(
+    q: torch.Tensor,      # (B, M, D) w_qs-projected queries
+    k_g: torch.Tensor,    # (B, M, K, D) gathered, w_ks-projected
+    v_g: torch.Tensor,    # (B, M, K, D)
+    delta: torch.Tensor,  # (B, M, K, 3) q_xyz - neighbour xyz
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """Vector attention of every query over its K gathered neighbours; (B, M, D)."""
+    B, M, K, D = k_g.shape
+    if q.shape != (B, M, D) or v_g.shape != (B, M, K, D) or delta.shape != (B, M, K, 3):
+        raise ValueError(f"shapes do not fit q (B, M, D), k_g / v_g (B, M, K, D), delta "
+                         f"(B, M, K, 3): {tuple(q.shape)}, {tuple(k_g.shape)}, "
+                         f"{tuple(v_g.shape)}, {tuple(delta.shape)}")
+    if q.device.type == "cpu":
+        return plain_fused_vector_attention(q, k_g, v_g, delta, fc_delta, fc_gamma)
+    check_one_device(q, k_g, v_g, delta, *fc_delta, *fc_gamma)
+    check_attention_shapes(D, K)
+    _lib.no_grad_guard("fused_vector_attention", q, k_g, v_g, delta, *fc_delta, *fc_gamma)
+    dt = q.dtype
+    qc = q.contiguous()
+    kc, vc, dc = (t.to(dt).contiguous() for t in (k_g, v_g, delta))
+    ws = [w.to(dt).contiguous() for w in (*fc_delta, *fc_gamma)]
+    out = torch.empty_like(qc)
+    _lib.lib().call("poem_vector_attention", _lib.dtype_code(qc), 2, qc.data_ptr(), None, None, None, kc.data_ptr(), vc.data_ptr(), dc.data_ptr(),
+                    None, None, *[w.data_ptr() for w in ws], out.data_ptr(), B, M, 0, D, K,
+                    _lib.stream_ptr(q))
+    fused_vector_attention.launches += 1
+    return out
+
+
+fused_vector_attention.launches = 0

@@ -1,35 +1,19 @@
 """flax -> torch weight bridge: every flax leaf and every torch key is matched once."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
+
+from torch_port_helpers import flax_model_shapes as _flax_shapes, zeros_like_shapes as _zeros
 
 from poem_v2_tpu_torch.convert import flax_to_state_dict
 from poem_v2_tpu_torch.models.poem import create_poem_model as torch_create
 
 
-def _flax_shapes(cfg, size):
-    from poem_v2_tpu.models.poem import create_poem_model as jax_create
-
-    # use_flash=False: the parameter tree is the same, and init traces no Pallas call
-    model, _ = jax_create(cfg, use_flash=False)
-    B, V = 1, 1
-    args = (jnp.zeros((B, V, size, size, 3)), jnp.ones((B, V), bool),
-            jnp.tile(jnp.eye(3) * 100, (B, V, 1, 1)), jnp.tile(jnp.eye(4), (B, V, 1, 1)))
-    rng = jax.random.PRNGKey(0)
-    return jax.eval_shape(lambda: model.init(
-        {"params": rng, "noise": rng, "dropout": rng}, *args, None, train=False))
-
-
-def _zeros(shapes):
-    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-
-
 def _check_bijection(shapes, cfg_dict):
     n_leaves = len(jax.tree_util.tree_leaves(shapes))
     sd = flax_to_state_dict(_zeros(shapes))
-    model, _ = torch_create(cfg_dict)
+    model, _ = torch_create(cfg_dict, device="cpu")
     tsd = model.state_dict()
     n_bn = sum(k.endswith("num_batches_tracked") for k in tsd)
     assert len(sd) == n_leaves + n_bn  # one key per flax leaf, plus BN step counters

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from poem_v2_tpu_torch.ops import bilinear, cross_attn, knn_attn, scatter
+from poem_v2_tpu_torch.ops import bilinear, cross_attn, knn_attn, scatter, scramble, vector_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -43,7 +43,12 @@ def _mk(rs, *shape, scale=1.0):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,N,D,K,dup", [(67, 200, 64, 8, False), (40, 64, 32, 16, True),
-                                         (30, 4200, 128, 32, False), (799, 4096, 256, 32, False)])
+                                         (30, 4200, 128, 32, False), (799, 4096, 256, 32, False),
+                                         # wide tiers: 16 rows a block above D = 256, where
+                                         # K = 32 is folded in two chunks, K = 16 in one, and
+                                         # K = 8 puts two queries in a block
+                                         (799, 4096, 512, 32, False), (203, 1000, 1024, 32, False),
+                                         (65, 300, 1024, 16, False), (41, 100, 1024, 8, True)])
 def test_knn_vector_attention(cuda, dtype, M, N, D, K, dup):
     rs = np.random.RandomState(M + N)
     pt = _mk(rs, 2, N, 3)
@@ -66,13 +71,15 @@ def test_knn_vector_attention(cuda, dtype, M, N, D, K, dup):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_anchor_vector_attention(cuda, dtype):
+@pytest.mark.parametrize("D", [128, 256, 512, 1024])
+def test_anchor_vector_attention(cuda, dtype, D):
     rs = np.random.RandomState(1)
-    B, M, A, D = 2, 799, 32, 256
+    B, M, A = 2, 799, 32
     args = [_mk(rs, B, M, D).to(dtype), _mk(rs, B, M, 3), _mk(rs, B, A, D).to(dtype),
             _mk(rs, B, A, D).to(dtype), _mk(rs, A, 3)]
-    fcd = [_mk(rs, 3, D), _mk(rs, D), _mk(rs, D, D, scale=1 / 16), _mk(rs, D)]
-    fcg = [_mk(rs, D, D, scale=1 / 16), _mk(rs, D), _mk(rs, D, D, scale=1 / 16), _mk(rs, D)]
+    s = 1 / math.sqrt(D)
+    fcd = [_mk(rs, 3, D), _mk(rs, D), _mk(rs, D, D, scale=s), _mk(rs, D)]
+    fcg = [_mk(rs, D, D, scale=s), _mk(rs, D), _mk(rs, D, D, scale=s), _mk(rs, D)]
     want = knn_attn.fused_anchor_vector_attention(*args, fcd, fcg)
     dev = lambda ts: [t.to(cuda) for t in ts]
     got = knn_attn.fused_anchor_vector_attention(*dev(args), dev(fcd), dev(fcg))
@@ -262,3 +269,130 @@ def test_hrnet_float32_backward_conditioning(cuda):
         got = grads(dev, torch.float32)
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         assert err <= 3e-2 * scale, (dev, err / scale)
+
+
+def _attn_mlps(rs, D):
+    s = 1 / math.sqrt(D)
+    return ([_mk(rs, 3, D), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1)],
+            [_mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s),
+             _mk(rs, D, scale=0.1)])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,K", [(799, 128, 32), (799, 256, 32), (300, 512, 32),
+                                   (150, 1024, 32), (77, 64, 8), (50, 1024, 16)])
+def test_fused_vector_attention(cuda, dtype, M, D, K):
+    """K8 against its plain version on gathered k / v / delta."""
+    rs = np.random.RandomState(M + D)
+    B = 2
+    args = [_mk(rs, B, M, D).to(dtype), _mk(rs, B, M, K, D).to(dtype),
+            _mk(rs, B, M, K, D).to(dtype), _mk(rs, B, M, K, 3, scale=0.4)]
+    fcd, fcg = _attn_mlps(rs, D)
+    want = vector_attn.fused_vector_attention(*args, fcd, fcg)
+    dev = lambda ts: [t.to(cuda) for t in ts]
+    before = vector_attn.fused_vector_attention.launches
+    got = vector_attn.fused_vector_attention(*dev(args), dev(fcd), dev(fcg))
+    torch.cuda.synchronize()
+    assert vector_attn.fused_vector_attention.launches == before + 1
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [128, 256, 512, 1024])
+@pytest.mark.parametrize("pattern", ["mixed", "all_1", "all_V"])
+def test_scrambled_merge_gather(cuda, dtype, C, pattern):
+    """K5 is a copy: bit-identical to the plain gather on every row, the aliased ones too."""
+    rs = np.random.RandomState(C)
+    B, V, NS = 4, 8, 512
+    n_val = {"mixed": [3, 8, 1, 6], "all_1": [1] * B, "all_V": [V] * B}[pattern]
+    n_val = torch.tensor(n_val, dtype=torch.int64)
+    flat = _mk(rs, B, V * NS * C).to(dtype)
+    want = scramble.scrambled_merge_gather(flat, n_val, V, C)
+    before = scramble.scrambled_merge_gather.launches
+    got = scramble.scrambled_merge_gather(flat.to(cuda), n_val.to(cuda), V, C)
+    torch.cuda.synchronize()
+    assert scramble.scrambled_merge_gather.launches == before + 1
+    assert got.shape == (B, NS, V, C) and torch.equal(got.cpu(), want)
+
+
+def test_shapes_the_new_wrappers_reject(cuda):
+    """K5: rows that are no multiple of 16 bytes; K1 / K2 / K8: D above 1024, D % 4, 32 % K."""
+    rs = np.random.RandomState(3)
+    n_val = torch.tensor([1, 2], device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        scramble.scrambled_merge_gather(_mk(rs, 2, 2 * 16 * 4).to(cuda).bfloat16(), n_val, 2, 4)
+    scramble.scrambled_merge_gather(_mk(rs, 2, 2 * 16 * 4).to(cuda), n_val, 2, 4)  # 16-byte rows
+    with pytest.raises(ValueError, match="n_val"):
+        scramble.scrambled_merge_gather(_mk(rs, 2, 2 * 16 * 4).to(cuda), n_val[:1], 2, 4)
+    for D, K in ((1028, 8), (30, 8), (64, 3), (64, 64)):
+        fcd, fcg = _attn_mlps(rs, D)
+        args = [_mk(rs, 1, 5, D), _mk(rs, 1, 5, K, D), _mk(rs, 1, 5, K, D), _mk(rs, 1, 5, K, 3)]
+        with pytest.raises(ValueError, match="CUDA kernel takes"):
+            vector_attn.fused_vector_attention(*[t.to(cuda) for t in args],
+                                               [t.to(cuda) for t in fcd],
+                                               [t.to(cuda) for t in fcg])
+        xyz = _mk(rs, 1, 80, 3).to(cuda)
+        with pytest.raises(ValueError, match="CUDA kernel takes"):
+            knn_attn.fused_knn_vector_attention(
+                _mk(rs, 1, 80, D).to(cuda), xyz, xyz, _mk(rs, 1, 80, D).to(cuda),
+                _mk(rs, D, D).to(cuda), _mk(rs, D, D).to(cuda), [t.to(cuda) for t in fcd],
+                [t.to(cuda) for t in fcg], n_neighbor=K)
+    q = _mk(rs, 1, 5, 32).to(cuda).requires_grad_()
+    fcd, fcg = _attn_mlps(rs, 32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        vector_attn.fused_vector_attention(q, _mk(rs, 1, 5, 8, 32).to(cuda),
+                                           _mk(rs, 1, 5, 8, 32).to(cuda),
+                                           _mk(rs, 1, 5, 8, 3).to(cuda),
+                                           [t.to(cuda) for t in fcd], [t.to(cuda) for t in fcg])
+    with pytest.raises(RuntimeError, match="no backward"):
+        scramble.scrambled_merge_gather(_mk(rs, 2, 2 * 16 * 4).to(cuda).requires_grad_(),
+                                        n_val, 2, 4)
+
+
+@pytest.mark.parametrize("hidden", [128, 512, 1024])
+def test_decoder_block_at_the_tiers_widths(cuda, hidden):
+    """One KNN decoder block in float32, card against CPU: K3 at head dims 32,
+    128 and 256 and K1 at D = 128, 512, 1024 inside the model. Float32 sums in
+    other orders through two attentions, two vector attentions and the FFN."""
+    from poem_v2_tpu_torch.models.decoder import PointMetroBlock
+    from poem_v2_tpu_torch.models.poem import init_parameters
+
+    rs = np.random.RandomState(hidden)
+    block = PointMetroBlock(hidden, num_heads=4, n_neighbor=32, n_neighbor_query=32).eval()
+    init_parameters(block, torch.Generator().manual_seed(hidden))
+    args = [_mk(rs, 1, 200, 3, scale=0.4), _mk(rs, 1, 200, hidden), _mk(rs, 1, 1000, 3, scale=0.4),
+            _mk(rs, 1, 1000, hidden)]
+    with torch.no_grad():
+        want_f, want_xyz = block(*args)
+        k3, k1 = cross_attn.dense_cross_attention.launches, \
+            knn_attn.fused_knn_vector_attention.launches
+        got_f, got_xyz = block.to(cuda)(*[t.to(cuda) for t in args])
+    torch.cuda.synchronize()
+    assert cross_attn.dense_cross_attention.launches == k3 + 2
+    assert knn_attn.fused_knn_vector_attention.launches == k1 + 2
+    _close(got_f, want_f, torch.float32)
+    _close(got_xyz, want_xyz, torch.float32)
+
+
+@pytest.mark.parametrize("init_block", [False, True])
+def test_pointer_layer_use_fused_runs_k8(cuda, init_block):
+    """PointerLayer(use_fused=True, use_fused_knn=False): two K8 launches per
+    forward, card (kernel) against CPU (plain version), float32."""
+    from poem_v2_tpu_torch.models.decoder import PointerLayer
+    from poem_v2_tpu_torch.models.poem import init_parameters
+
+    rs = np.random.RandomState(11)
+    D = 64
+    layer = PointerLayer(D, 16, 16, init_block, use_fused=True, use_fused_knn=False).eval()
+    init_parameters(layer, torch.Generator().manual_seed(2))
+    args = [_mk(rs, 2, 300, 3, scale=0.4), _mk(rs, 2, 300, D), _mk(rs, 2, 90, 3, scale=0.4),
+            _mk(rs, 2, 90, D)]
+    anchors = (torch.arange(0, 64, 2), torch.arange(1, 65, 2), _mk(rs, 32, 3, scale=0.4))
+    with torch.no_grad():
+        want_f, want_xyz = layer(*args, *anchors)
+        before = vector_attn.fused_vector_attention.launches
+        got_f, got_xyz = layer.to(cuda)(*[t.to(cuda) for t in (*args, *anchors)])
+    torch.cuda.synchronize()
+    assert vector_attn.fused_vector_attention.launches == before + 2
+    _close(got_f, want_f, torch.float32)
+    _close(got_xyz, want_xyz, torch.float32)

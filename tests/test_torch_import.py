@@ -41,10 +41,10 @@ import numpy as np, torch
 import poem_v2_tpu_torch
 for m in pkgutil.walk_packages(poem_v2_tpu_torch.__path__, "poem_v2_tpu_torch."):
     importlib.import_module(m.name)
-from poem_v2_tpu_torch.configs import MEDIUM
+from poem_v2_tpu_torch.configs import MEDIUM_MANO
 from poem_v2_tpu_torch.serving.predictor import Predictor
 
-cfg = copy.deepcopy(MEDIUM)
+cfg = copy.deepcopy(MEDIUM_MANO)  # the parametric head: rotations and the MANO layer run too
 m = cfg["MODEL"]
 m["BACKBONE"]["WIDTH"] = 8
 h = m["HEAD"]
@@ -53,12 +53,13 @@ h["POSITIONAL_ENCODING"]["NUM_FEATS"] = 16
 h["TRANSFORMER"].update(N_BLOCKS=2, INPUT_FEAT_DIM=32, N_NEIGHBOR=8, N_NEIGHBOR_QUERY=8)
 pred = Predictor.from_config(cfg, dtype=torch.float32, device="cpu", view_bucket=2)
 rs = np.random.RandomState(0)
-images = rs.randint(0, 256, (1, 2, 64, 64, 3)).astype(np.uint8)
-intr = np.tile((np.eye(3) * [80, 80, 1] + [[0, 0, 32], [0, 0, 32], [0, 0, 0]])[None, None], (1, 2, 1, 1))
-extr = np.tile(np.eye(4)[None, None], (1, 2, 1, 1))
-extr[0, 1, :3, 3] = [0.1, 0.0, 0.0]
-out = pred(images, intr.astype(np.float32), extr.astype(np.float32))
-assert out["verts_3d"].shape == (1, 778, 3) and np.isfinite(out["verts_3d"]).all()
+images = rs.randint(0, 256, (2, 2, 64, 64, 3)).astype(np.uint8)
+intr = np.tile((np.eye(3) * [80, 80, 1] + [[0, 0, 32], [0, 0, 32], [0, 0, 0]])[None, None], (2, 2, 1, 1))
+extr = np.tile(np.eye(4)[None, None], (2, 2, 1, 1))
+extr[:, 1, :3, 3] = [0.1, 0.0, 0.0]
+mask = np.array([[True, True], [True, False]])  # mixed view counts: the scramble's gather runs
+out = pred(images, intr.astype(np.float32), extr.astype(np.float32), mask)
+assert out["verts_3d"].shape == (2, 778, 3) and np.isfinite(out["verts_3d"]).all()
 leaked = [k for k in sys.modules if k.split(".")[0] in %(forbidden)r]
 assert not leaked, leaked
 print("ok")

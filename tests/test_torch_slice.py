@@ -54,7 +54,7 @@ def test_slice_matches_jax_poemnet():
         want = jax.jit(lambda v, *a: jmodel.apply(v, *a, None, train=False))(variables, *args)
         want = jax.tree_util.tree_map(np.asarray, want)
 
-    tmodel, _ = torch_create(cfg)
+    tmodel, _ = torch_create(cfg, device="cpu")
     load_converted(tmodel, variables)
     with torch.no_grad():
         got = tmodel(*(torch.from_numpy(a) for a in (images, mask, intr, extr)))
@@ -71,7 +71,7 @@ def test_predictor_pads_ragged_request_like_the_model():
     model on the batch padded by hand: views to the bucket with identity x
     100 intrinsics, the batch to bucket 4 with copies of row 0."""
     cfg = _tiny_cfg()
-    model, _ = torch_create(cfg, generator=torch.Generator().manual_seed(3))
+    model, _ = torch_create(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     pred = Predictor(model, view_bucket=4, image_size=64)
     rs = np.random.RandomState(1)
     images = rs.randint(0, 256, (3, 2, 64, 64, 3)).astype(np.uint8)

@@ -204,7 +204,7 @@ def test_remat_keeps_kernel_outputs_out_of_the_recompute(monkeypatch):
         torch.manual_seed(1)
         calls.update(dense=0, knn=0)
         dec.train()
-        coords = dec(*args, aidx, aidx, None)
+        coords, _, _ = dec(*args, aidx, aidx, None)
         # the last block's FFN feeds no coordinate: its parameters get None
         grads = torch.autograd.grad((coords ** 2).sum(), list(dec.parameters()),
                                     allow_unused=True)

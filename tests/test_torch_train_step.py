@@ -103,7 +103,7 @@ def jax_step():
 @pytest.fixture(scope="module")
 def torch_step(jax_step):
     cfg = jax_step["cfg"]
-    model, aux = torch_create(cfg)
+    model, aux = torch_create(cfg, device="cpu")
     load_converted(model, jax_step["variables"])
     optimizer = Optimizer(model.parameters(), cfg.TRAIN, STEPS_PER_EPOCH)
     trainer = Trainer(model, aux, cfg.TRAIN, cfg.LOSS)
@@ -200,7 +200,8 @@ def test_float32_params_with_bfloat16_compute():
     from poem_v2_tpu_torch.data.synthetic import SyntheticMultiviewDataset
 
     cfg = _cfg()
-    model, aux = torch_create(cfg, dtype=torch.bfloat16, param_dtype=torch.float32)
+    model, aux = torch_create(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                              device="cpu")
     trainer = Trainer(model, aux, cfg.TRAIN, cfg.LOSS)
     seen = []
     model.head.transformer.block_0.attn.register_forward_hook(

@@ -46,6 +46,27 @@ def tiny_cfg(norm: str = "gn"):
     return cfg
 
 
+def flax_model_shapes(cfg, size: int):
+    """``eval_shape`` of the JAX POEMNet's variables for ``cfg`` at ``size`` px
+    (parameter shapes do not depend on the image size)."""
+    import jax.numpy as jnp
+
+    from poem_v2_tpu.models.poem import create_poem_model as jax_create
+
+    # use_flash=False: the parameter tree is the same, and init traces no Pallas call
+    model, _ = jax_create(cfg, use_flash=False)
+    B, V = 1, 1
+    args = (jnp.zeros((B, V, size, size, 3)), jnp.ones((B, V), bool),
+            jnp.tile(jnp.eye(3) * 100, (B, V, 1, 1)), jnp.tile(jnp.eye(4), (B, V, 1, 1)))
+    rng = jax.random.PRNGKey(0)
+    return jax.eval_shape(lambda: model.init(
+        {"params": rng, "noise": rng, "dropout": rng}, *args, None, train=False))
+
+
+def zeros_like_shapes(shapes):
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+
+
 def to_numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
