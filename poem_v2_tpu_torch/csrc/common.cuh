@@ -29,6 +29,29 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// |v|^2 and the squared distance (|q|^2 + |p|^2) - 2 q.p, one rounded float32
+// operation at a time in a fixed order (no fused multiply-add), as
+// ops/knn_attn.py:square_distance_rn forms them: a selection kernel and its
+// plain version then see the same bits and pick the same neighbours.
+__device__ __forceinline__ float sq3(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+__device__ __forceinline__ float d2_rn(float qx, float qy, float qz, float qq, float px, float py,
+                                       float pz) {
+  const float cross =
+      __fadd_rn(__fadd_rn(__fmul_rn(qx, px), __fmul_rn(qy, py)), __fmul_rn(qz, pz));
+  return __fsub_rn(__fadd_rn(qq, sq3(px, py, pz)), __fmul_rn(2.0f, cross));
+}
+
+// float32 bits <-> unsigned values in the same order (negative values included)
+__device__ __forceinline__ uint32_t float_to_ordered(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float ordered_to_float(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
 // Raise the dynamic shared-memory limit of `kernel` when it needs more
 // than the default 48 KB. Returns the CUDA error code.
 template <typename K> inline cudaError_t allow_smem(K kernel, size_t bytes) {

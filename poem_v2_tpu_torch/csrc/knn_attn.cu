@@ -49,10 +49,6 @@ constexpr int PACK_MAX = 4096;
 constexpr int VA_THREADS = 256;
 enum { VA_KNN = 0, VA_ANCHOR = 1, VA_GATHERED = 2 };
 
-__device__ __forceinline__ float sq3(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
-
 template <bool PACKED>
 __global__ void knn_select_kernel(const float* __restrict__ qxyz, const float* __restrict__ ptxyz,
                                   int* __restrict__ idx, int M, int N, int K) {
@@ -68,10 +64,7 @@ __global__ void knn_select_kernel(const float* __restrict__ qxyz, const float* _
   int* out = idx + ((size_t)b * M + m) * K;
 
   auto d2_of = [&](int j) {
-    const float px = p[3 * j], py = p[3 * j + 1], pz = p[3 * j + 2];
-    const float cross =
-        __fadd_rn(__fadd_rn(__fmul_rn(qx, px), __fmul_rn(qy, py)), __fmul_rn(qz, pz));
-    return __fsub_rn(__fadd_rn(qq, sq3(px, py, pz)), __fmul_rn(2.0f, cross));
+    return d2_rn(qx, qy, qz, qq, p[3 * j], p[3 * j + 1], p[3 * j + 2]);
   };
 
   if (PACKED) {
@@ -98,9 +91,8 @@ __global__ void knn_select_kernel(const float* __restrict__ qxyz, const float* _
     for (int k = 0; k < K; ++k) {
       unsigned long long best = ~0ull;
       for (int j = lane; j < N; j += 32) {
-        const uint32_t u = __float_as_uint(d2_of(j));
-        const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-        const unsigned long long key = ((unsigned long long)ord << 32) | (uint32_t)j;
+        const unsigned long long key =
+            ((unsigned long long)float_to_ordered(d2_of(j)) << 32) | (uint32_t)j;
         if ((k == 0 || key > thr) && key < best) best = key;
       }
       for (int off = 16; off > 0; off >>= 1) {

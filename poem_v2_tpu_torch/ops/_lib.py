@@ -34,7 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "poem_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "poem_knn_select_bucketed": [_P] * 7 + [_I] * 8 + [_P],
     "poem_vector_attention": [_I, _I] + [_P] * 18 + [_I] * 5 + [_P],
+    "poem_kth_key_rows": [_I, _P, _P, _I, _I, _I, _P],
+    "poem_kth_key_onehot": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "poem_scramble_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "poem_dense_cross_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "poem_dense_cross_attention_bwd": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],

@@ -8,7 +8,13 @@ Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
   (the same attention against fixed, pre-projected anchors);
 * :func:`knn_vector_attention_trainable` <- ``knn_vector_attention_trainable``
   (K6: K1's forward with its indices saved; the backward is the gradient of
-  :func:`attention_from_idx`, whose feature gather scatters back by K7).
+  :func:`attention_from_idx`, whose feature gather scatters back by K7);
+* :func:`fused_knn_vector_attention_bucketed` <-
+  ``fused_knn_vector_attention_bucketed`` (K9: the exact K-NN restricted to
+  the nearest k-d buckets of a static cloud, with a per-block exactness
+  margin; ``csrc/knn_bucketed.cu`` selects, K1's attention kernel follows)
+  and its host step :func:`select_candidate_buckets`. As in the JAX package
+  it is a function only: no model path calls it.
 
 Each wrapper takes CPU tensors to its plain PyTorch version and CUDA
 tensors to the hand-written kernel in ``csrc/knn_attn.cu``; there is no
@@ -87,17 +93,22 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, flat[..., None].expand(B, M * K, x.shape[-1])).reshape(B, M, K, -1)
 
 
-def plain_fused_knn_vector_attention(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma,
-                                     n_neighbor: int = 32, return_idx: bool = False):
-    """Plain PyTorch version of :func:`fused_knn_vector_attention`."""
+def _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx):
+    """The plain gather and vector attention at given (B, M, K) neighbour indices."""
     dt = q.dtype
-    idx = knn_select_plain(query_xyz, pt_xyz, n_neighbor)
     x_g = _gather(x_full.to(dt), idx)
     nn_xyz = _gather(pt_xyz.float(), idx)
     delta = query_xyz.float()[:, :, None] - nn_xyz
-    out = vector_attention_plain(
+    return vector_attention_plain(
         q, _mm(x_g, wk, dt), _mm(x_g, wv, dt), delta, fc_delta, fc_gamma
     )
+
+
+def plain_fused_knn_vector_attention(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma,
+                                     n_neighbor: int = 32, return_idx: bool = False):
+    """Plain PyTorch version of :func:`fused_knn_vector_attention`."""
+    idx = knn_select_plain(query_xyz, pt_xyz, n_neighbor)
+    out = _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx)
     return (out, idx) if return_idx else out
 
 
@@ -275,3 +286,161 @@ def knn_vector_attention_trainable(
 
 
 knn_vector_attention_trainable.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: exact K-NN restricted to the nearest k-d buckets of a static cloud
+# ---------------------------------------------------------------------------
+
+MARGIN_SENTINEL = 3.4e38  # the margin of a block that has no non-candidate bucket
+# the selection kernel keeps a warp's candidate distances in shared memory (4 bytes a point)
+MAX_CANDIDATE_POINTS = 32768
+
+
+def box_lower_bound(query_xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(..., 3) queries, (NB, 3) box corners -> (..., NB): the least squared
+    distance from each query to each box, ``sum_axis max(lo - q, q - hi, 0)^2``
+    summed x, y, z one rounded operation at a time (the kernel's order)."""
+    q = query_xyz.float()[..., None, :]
+    d = torch.clamp_min(torch.maximum(lo.float() - q, q - hi.float()), 0.0)
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def select_candidate_buckets(query_xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                             block_q: int, n_cand: int) -> torch.Tensor:
+    """The ``n_cand`` buckets nearest to each block of ``block_q`` queries, by
+    the least box distance of any query of the block.
+
+    query_xyz (B, Mp, 3) with Mp a multiple of ``block_q``; lo / hi (NB, 3).
+    Returns (B * Mp / block_q * n_cand,) int32, nearest first. Equal scores
+    (every bucket whose box holds a query of the block scores 0) go to the
+    lowest bucket id, as ``jax.lax.top_k`` orders them: the order is the
+    candidates' column order, which breaks distance ties in the selection."""
+    B, Mp, _ = query_xyz.shape
+    if Mp % block_q:
+        raise ValueError(f"{Mp} queries are not a multiple of block_q={block_q}")
+    lb = box_lower_bound(query_xyz.reshape(B, Mp // block_q, block_q, 3), lo, hi)
+    score = lb.min(dim=2).values  # (B, nblk, NB)
+    order = torch.sort(score, dim=-1, stable=True).indices
+    return order[..., :n_cand].to(torch.int32).reshape(-1)
+
+
+def _pad_queries_edge(query_xyz: torch.Tensor, block_q: int) -> torch.Tensor:
+    """Query coordinates padded to a multiple of ``block_q`` by repeating the
+    last query, so that pad rows pick no other bucket and leave the margin alone."""
+    B, M, _ = query_xyz.shape
+    m_pad = _round_up(M, block_q) - M
+    if not m_pad:
+        return query_xyz
+    return torch.cat([query_xyz, query_xyz[:, -1:].expand(B, m_pad, 3)], dim=1)
+
+
+def _check_buckets(N: int, NB: int, n_neighbor: int, n_cand: int, bucket_size: int) -> None:
+    if N != NB * bucket_size:
+        raise ValueError(f"the cloud's {N} points are not {NB} buckets of {bucket_size}")
+    if n_cand > NB:
+        raise ValueError(f"n_cand={n_cand} exceeds the {NB} buckets")
+    if n_neighbor > n_cand * bucket_size:
+        raise ValueError(f"n_neighbor={n_neighbor} exceeds the {n_cand * bucket_size} "
+                         "candidate points")
+
+
+def plain_fused_knn_vector_attention_bucketed(
+        q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, fc_delta, fc_gamma, n_neighbor: int = 32,
+        block_q: int = 32, n_cand: int = 8, bucket_size: int = 128, return_idx: bool = False):
+    """Plain PyTorch version of :func:`fused_knn_vector_attention_bucketed`."""
+    B, M, _ = q.shape
+    K, SB, C = n_neighbor, bucket_size, n_cand
+    _check_buckets(pt_xyz.shape[1], lo.shape[0], K, C, SB)
+    qxyz = _pad_queries_edge(query_xyz.float(), block_q)
+    nblk = qxyz.shape[1] // block_q
+    cand = select_candidate_buckets(qxyz, lo, hi, block_q, C).reshape(B, nblk, C).long()
+    # cloud index of every candidate column, (B, nblk, C * SB)
+    cols = (cand[..., None] * SB + torch.arange(SB, device=q.device)).reshape(B, nblk, C * SB)
+    cand_xyz = index_points(pt_xyz.float(), cols)  # (B, nblk, C * SB, 3)
+    qb = qxyz.reshape(B, nblk, block_q, 3)
+    d2 = square_distance_rn(qb.reshape(B * nblk, block_q, 3), cand_xyz.reshape(B * nblk, C * SB, 3))
+    # K rounds of (smallest d2, lowest candidate column among equals)
+    order = torch.sort(d2, dim=-1, stable=True)
+    pos = order.indices[..., :K].reshape(B, nblk, block_q * K)
+    kth_d2 = order.values[..., K - 1].reshape(B, nblk, block_q)
+    idx = torch.gather(cols, 2, pos).reshape(B, nblk * block_q, K)[:, :M].to(torch.int32)
+
+    lb = box_lower_bound(qb, lo, hi)  # (B, nblk, block_q, NB)
+    is_cand = torch.zeros((B, nblk, lo.shape[0]), dtype=torch.bool, device=q.device)
+    is_cand.scatter_(2, cand, True)
+    lb = lb.masked_fill(is_cand[:, :, None, :], float("inf"))
+    margins = (lb.min(dim=-1).values - kth_d2).min(dim=-1).values  # (B, nblk)
+    margins = torch.where(torch.isfinite(margins), margins,
+                          torch.full_like(margins, MARGIN_SENTINEL))
+    out = _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx)
+    return (out, margins, idx) if return_idx else (out, margins)
+
+
+def fused_knn_vector_attention_bucketed(
+    q: torch.Tensor,          # (B, M, D) w_qs(query_feat)
+    query_xyz: torch.Tensor,  # (B, M, 3)
+    pt_xyz: torch.Tensor,     # (B, N, 3) in bucket-contiguous order
+    x_full: torch.Tensor,     # (B, N, D) in the same order
+    lo: torch.Tensor,         # (NB, 3) lower corners of the buckets' boxes
+    hi: torch.Tensor,         # (NB, 3) upper corners
+    wk: torch.Tensor,
+    wv: torch.Tensor,
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+    n_neighbor: int = 32,
+    block_q: int = 32,
+    n_cand: int = 8,
+    bucket_size: int = 128,
+    return_idx: bool = False,
+):
+    """:func:`fused_knn_vector_attention` over a static cloud laid out by
+    ``ops/points.py:build_balanced_buckets``, looking only at the ``n_cand``
+    buckets nearest to each block of ``block_q`` queries.
+
+    Returns (out (B, M, D), margins (B, ceil(M / block_q)) float32), plus the
+    (B, M, K) int32 cloud indices when ``return_idx``. ``margins >= 0`` proves
+    that the block's neighbours are those of a search over the whole cloud
+    (ties aside, which go to the lowest candidate column here); with every
+    bucket a candidate the margin is ``MARGIN_SENTINEL``. Distances are
+    compared as full float32 values, not as K1's packed keys."""
+    B, M, D = q.shape
+    N, NB = pt_xyz.shape[1], lo.shape[0]
+    _check_buckets(N, NB, n_neighbor, n_cand, bucket_size)
+    if q.device.type == "cpu":
+        return plain_fused_knn_vector_attention_bucketed(
+            q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, fc_delta, fc_gamma, n_neighbor,
+            block_q, n_cand, bucket_size, return_idx)
+    check_one_device(q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, *fc_delta, *fc_gamma)
+    check_attention_shapes(D, n_neighbor)
+    if n_cand * bucket_size > MAX_CANDIDATE_POINTS:
+        raise ValueError(f"the CUDA kernel takes at most {MAX_CANDIDATE_POINTS} candidate "
+                         f"points a block, got {n_cand} x {bucket_size}")
+    _lib.no_grad_guard("fused_knn_vector_attention_bucketed", q, query_xyz, pt_xyz, x_full,
+                       wk, wv, *fc_delta, *fc_gamma)
+    dt = q.dtype
+    L = _lib.lib()
+    qxyz = query_xyz.float().contiguous()
+    pxyz = pt_xyz.float().contiguous()
+    lo32, hi32 = lo.float().contiguous(), hi.float().contiguous()
+    qc = q.contiguous()
+    xf = x_full.to(dt).contiguous()
+    ws = _weights(dt, [wk, wv, *fc_delta, *fc_gamma])
+    cand = select_candidate_buckets(_pad_queries_edge(qxyz, block_q), lo32, hi32, block_q,
+                                    n_cand).contiguous()
+    nblk = _round_up(M, block_q) // block_q
+    idx = torch.empty((B, M, n_neighbor), dtype=torch.int32, device=q.device)
+    margins = torch.empty((B, nblk), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(qc)
+    s = _lib.stream_ptr(q)
+    L.call("poem_knn_select_bucketed", qxyz.data_ptr(), pxyz.data_ptr(), cand.data_ptr(),
+           lo32.data_ptr(), hi32.data_ptr(), idx.data_ptr(), margins.data_ptr(),
+           B, M, N, NB, n_neighbor, block_q, n_cand, bucket_size, s)
+    L.call("poem_vector_attention", _lib.dtype_code(qc), 0, qc.data_ptr(),
+           qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(), xf.data_ptr(), None, None,
+           *[w.data_ptr() for w in ws], out.data_ptr(), B, M, N, D, n_neighbor, s)
+    fused_knn_vector_attention_bucketed.launches += 1
+    return (out, margins, idx) if return_idx else (out, margins)
+
+
+fused_knn_vector_attention_bucketed.launches = 0

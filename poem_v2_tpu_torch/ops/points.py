@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -52,3 +53,39 @@ def farthest_point_sampling(points: torch.Tensor, k: int, start_idx: int = 0
         min_d2 = torch.minimum(min_d2, ((points - last) ** 2).sum(-1))
         idx[:, i] = torch.argmax(min_d2, dim=-1)
     return index_points(points, idx), idx
+
+
+def build_balanced_buckets(points: np.ndarray, bucket_size: int = 128
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Balanced k-d bucketing of a static cloud for the bucketed exact KNN
+    (``ops/knn_attn.py:fused_knn_vector_attention_bucketed``); numpy, on the
+    host, once per cloud.
+
+    Recursive median splits along the widest axis until every leaf holds
+    exactly ``bucket_size`` points; N must be a multiple of ``bucket_size``.
+    Returns (perm, lo, hi): ``perm`` (N,) int32 such that ``points[perm]``
+    lays the buckets out one after the other, and ``lo`` / ``hi`` (NB, 3)
+    float32, each bucket's tight axis-aligned box: the distance lower bounds
+    behind the kernel's exactness margin."""
+    pts = np.asarray(points, dtype=np.float32)
+    n = pts.shape[0]
+    if n % bucket_size:
+        raise ValueError(f"{n} points are not a multiple of bucket_size={bucket_size}")
+
+    def split(idx):
+        if len(idx) == bucket_size:
+            return [idx]
+        sub = pts[idx]
+        axis = int(np.argmax(sub.max(0) - sub.min(0)))
+        order = idx[np.argsort(sub[:, axis], kind="stable")]
+        half = len(order) // 2
+        # both halves stay multiples of bucket_size
+        half -= half % bucket_size
+        half = max(bucket_size, min(half, len(order) - bucket_size))
+        return split(order[:half]) + split(order[half:])
+
+    leaves = split(np.arange(n))
+    perm = np.concatenate(leaves).astype(np.int32)
+    lo = np.stack([pts[leaf].min(0) for leaf in leaves]).astype(np.float32)
+    hi = np.stack([pts[leaf].max(0) for leaf in leaves]).astype(np.float32)
+    return perm, lo, hi

@@ -1,4 +1,4 @@
-"""Rehearsal of ``chip_smoke.py`` on the CPU: its phase 1 at tiny shapes, with
+"""Rehearsal of ``chip_smoke.py`` on the CPU: its phases 1, 1b, 1c and 1d at tiny shapes, with
 the wrappers' plain versions on both sides and the timer stubbed, so that a
 wrong argument, shape or key shows here and not on the card."""
 
@@ -27,6 +27,8 @@ def test_phase_kernels_rehearsal(on_cpu):
     names = {case.split("/")[0] for case in results} - {"wide"}
     assert names == {k for k, n in chip_smoke.LAUNCHES_PER_MIXED_FORWARD.items() if n} | {
         "fused_vector_attention"}
+    assert set(chip_smoke.LAUNCHES_PER_FORWARD) == set(chip_smoke.LAUNCHES_PER_TRAIN_STEP) \
+        == set(chip_smoke.KERNELS) and len(chip_smoke.KERNELS) == 11
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for row in by_dtype.values():
@@ -37,6 +39,82 @@ def test_phase_kernels_rehearsal(on_cpu):
     for case in ("dense_cross_attention", "grid_sample_points_fused", "scrambled_merge_gather"):
         assert results[case]["bfloat16"]["library_ms"] is not None, case
     json.dumps(results)  # what goes into the kernels line is serialisable
+
+
+def test_phase_train_kernels_rehearsal(on_cpu):
+    """Phase 1b at a tiny shape: K3b, K6 (self and cross) and K7 at the main
+    width and at one other, which takes the branch that holds the kernels
+    against the plain version on the same device."""
+    results = {}
+    chip_smoke.phase_train_kernels(results, B=2, M=19, D=32, K=8, N=64, wide=(48,))
+    cases = ["dense_cross_attention_bwd", "knn_vector_attention_trainable/self",
+             "knn_vector_attention_trainable/cross", "scatter_add_rows/self",
+             "scatter_add_rows/cross"]
+    assert set(results) == set(cases) | {f"wide/{c}/D48" for c in cases}
+    for case, by_dtype in results.items():
+        assert set(by_dtype) == {"float32", "bfloat16"}, case
+        for dt, row in by_dtype.items():
+            assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
+            assert (row["library_ms"] is None) == ("knn_vector_attention" in case)
+            if "knn_vector_attention" in case:  # the 14 gradients are held in float32 only
+                assert (row["max_abs_err_grads"] is not None) == (dt == "float32")
+            else:
+                assert row["max_abs_err"] == 0.0  # the same plain version on both sides
+    # the kernels line takes the main width only
+    assert {c.split("/")[0] for c in results} - {"wide"} == {
+        "dense_cross_attention_bwd", "knn_vector_attention_trainable", "scatter_add_rows"}
+    json.dumps(results)
+
+
+def test_phase_bucketed_rehearsal(on_cpu):
+    """Phase 1c at a tiny shape: a generated 256-point ball in 16 buckets of 16,
+    40 hand queries in blocks of 4 (5 candidate buckets certify some blocks, 11
+    most); both sides run the plain version."""
+    results = {}
+    launches = chip_smoke.phase_bucketed(results, B=2, M=40, N=256, D=32, K=4, bucket_size=16,
+                                         block_q=4, n_cand=5, n_cand_most=11, wide=(48,))
+    assert launches == {k: 0 for k in chip_smoke.KERNELS}  # no kernel on the CPU
+    name = "fused_knn_vector_attention_bucketed"
+    assert set(results) == {name, f"wide/{name}/D48"}
+    assert set(results[name]) == {"float32", "bfloat16"}
+    for row in results[name].values():
+        assert {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "k1_ms",
+                "certified_share", "certified_share_most"} == set(row)
+        assert row["max_abs_err"] == 0.0 and row["bound_by"] in ("bytes", "operations")
+        assert 0.0 < row["certified_share"] <= row["certified_share_most"] <= 1.0
+        assert row["certified_share_most"] >= 0.5
+    json.dumps(results)
+
+
+def test_phase_select_rehearsal(on_cpu):
+    """Phase 1d at a tiny shape, the benchmark function included."""
+    results = {}
+    launches = chip_smoke.phase_select(results, B=2, M=32, N=256, K=8, block_q=16, chunk_j=4,
+                                       device="cpu")
+    assert launches["radix_select"] == 0
+    row = results["radix_select"]["int32"]
+    assert row["variant"] in ("scan32", "radix8") and row["max_abs_err"] == 0.0
+    assert set(row["variants_ms"]) == set(row["variants_plain_ms"]) == {
+        "pass1", "scan32", "radix8", "cur", "bcast"}
+    assert row["bound_by"] == "bytes" and row["library_ms"] is not None
+    json.dumps(results)
+
+
+def test_same_neighbours_as_k1_allows_packed_key_ties_only():
+    """K9 compares full float32 distances, K1 keys without their low 12 bits: a
+    query may differ from K1 where its last two candidates tie in the upper 20
+    bits, and nowhere else."""
+    d2 = torch.tensor([[[1.0, 2.0, 2.0 + 2.0 ** -15, 3.0]]])   # columns 1 and 2 tie for K1
+    idx9 = torch.tensor([[[0, 1]]], dtype=torch.int32)
+    certified = torch.ones(1, 1, dtype=torch.bool)
+    assert chip_smoke._same_neighbours_as_k1("t", idx9, idx9, d2, certified).all()
+    tie = torch.tensor([[[0, 2]]], dtype=torch.int32)
+    assert not chip_smoke._same_neighbours_as_k1("t", idx9, tie, d2, certified).any()
+    other = torch.tensor([[[0, 3]]], dtype=torch.int32)
+    with pytest.raises(AssertionError, match="beyond a packed-key tie"):
+        chip_smoke._same_neighbours_as_k1("t", idx9, other, d2, certified)
+    # a block that is not certified may differ from K1
+    assert not chip_smoke._same_neighbours_as_k1("t", idx9, other, d2, ~certified).any()
 
 
 def test_bounds_at_the_batch4_shapes():

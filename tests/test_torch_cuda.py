@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from poem_v2_tpu_torch.ops import bilinear, cross_attn, knn_attn, scatter, scramble, vector_attn
+from poem_v2_tpu_torch.ops import (bilinear, cross_attn, knn_attn, points, scatter, scramble, select,
+                                   vector_attn)
 
 pytestmark = pytest.mark.cuda
 
@@ -396,3 +397,236 @@ def test_pointer_layer_use_fused_runs_k8(cuda, init_block):
     assert vector_attn.fused_vector_attention.launches == before + 2
     _close(got_f, want_f, torch.float32)
     _close(got_xyz, want_xyz, torch.float32)
+
+
+def _bucketed_case(rs, B, M, N, D, SB, dtype, tight):
+    cloud = rs.randn(N, 3).astype(np.float32)
+    perm, lo, hi = points.build_balanced_buckets(cloud, SB)
+    s = 1 / math.sqrt(D)
+    qxyz = _mk(rs, B, M, 3)
+    if tight:  # queries sorted along x around one cloud point: blocks near each other
+        qxyz = torch.from_numpy(cloud[7]) + 0.3 * qxyz
+        qxyz = torch.gather(qxyz, 1, qxyz[..., :1].argsort(1).expand(B, M, 3))
+    args = [_mk(rs, B, M, D).to(dtype), qxyz,
+            torch.from_numpy(cloud[perm])[None].expand(B, N, 3).contiguous(),
+            _mk(rs, B, N, D).to(dtype), torch.from_numpy(lo), torch.from_numpy(hi),
+            _mk(rs, D, D, scale=s), _mk(rs, D, D, scale=s)]
+    fcd = [_mk(rs, 3, D), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1)]
+    fcg = [_mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s),
+           _mk(rs, D, scale=0.1)]
+    return args, fcd, fcg
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,N,D,K,SB,BQ,C,tight", [
+    (64, 512, 64, 8, 32, 16, 8, True),       # the CPU test's shape
+    (799, 4096, 256, 32, 128, 32, 8, True),  # the defaults; a ragged last block
+    (799, 4096, 256, 32, 128, 32, 32, False),  # every bucket a candidate
+    (203, 1024, 1024, 32, 64, 7, 3, False),  # block_q no multiple of the warps, wide D
+    (100, 768, 128, 16, 256, 50, 1, True),   # one candidate bucket
+])
+def test_knn_vector_attention_bucketed(cuda, dtype, M, N, D, K, SB, BQ, C, tight):
+    """K9: indices and certified blocks identical to the plain version, margins
+    to 1e-6, the output within TOL; the sentinel with every bucket a candidate."""
+    rs = np.random.RandomState(M + N + C)
+    args, fcd, fcg = _bucketed_case(rs, 2, M, N, D, SB, dtype, tight)
+    kw = dict(n_neighbor=K, block_q=BQ, n_cand=C, bucket_size=SB, return_idx=True)
+    want, wm, widx = knn_attn.fused_knn_vector_attention_bucketed(*args, fcd, fcg, **kw)
+    dev = lambda ts: [t.to(cuda) for t in ts]
+    before = knn_attn.fused_knn_vector_attention_bucketed.launches
+    got, gm, gidx = knn_attn.fused_knn_vector_attention_bucketed(*dev(args), dev(fcd), dev(fcg),
+                                                                 **kw)
+    torch.cuda.synchronize()
+    assert knn_attn.fused_knn_vector_attention_bucketed.launches == before + 1
+    assert torch.equal(gidx.cpu(), widx)
+    assert gm.shape == wm.shape == (2, -(-M // BQ))
+    assert torch.equal(gm.cpu() >= 0, wm >= 0)
+    finite = wm < 1e30
+    assert torch.equal(gm.cpu() < 1e30, finite)
+    assert float((gm.cpu() - wm)[finite].abs().max() if finite.any() else 0.0) <= 1e-6
+    if C * SB == N:
+        assert float(gm.min()) == pytest.approx(knn_attn.MARGIN_SENTINEL, rel=1e-6)
+    _close(got, want, dtype)
+
+
+def test_knn_vector_attention_bucketed_refuses(cuda):
+    rs = np.random.RandomState(3)
+    args, fcd, fcg = _bucketed_case(rs, 1, 40, 512, 32, 32, torch.float32, False)
+    dev = lambda ts: [t.to(cuda) for t in ts]
+    for kw, err in ((dict(bucket_size=48), ValueError), (dict(n_cand=17), ValueError),
+                    (dict(n_neighbor=64, n_cand=1), ValueError),
+                    (dict(n_neighbor=12), ValueError)):      # 32 % K != 0: the attention kernel
+        with pytest.raises(err):
+            knn_attn.fused_knn_vector_attention_bucketed(
+                *dev(args), dev(fcd), dev(fcg), **{**dict(n_neighbor=8, bucket_size=32), **kw})
+    q = args[0].to(cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        knn_attn.fused_knn_vector_attention_bucketed(q, *dev(args[1:]), dev(fcd), dev(fcg),
+                                                     n_neighbor=8, bucket_size=32)
+
+
+@pytest.mark.parametrize("name", select.VARIANTS)
+@pytest.mark.parametrize("B,M,N,K,BQ,CJ", [(2, 64, 512, 8, 16, 4), (3, 130, 4096, 32, 65, 16),
+                                           (1, 12, 1000, 30, 4, 5), (2, 10, 37, 37, 5, 37)])
+def test_kth_key_variants(cuda, name, B, M, N, K, BQ, CJ):
+    """K10: every variant equal (integers: tolerance 0) to its plain version and
+    to np.partition; N = 37 = K takes the whole row."""
+    keys_np = select.make_keys(N, B, M, N)
+    keys = torch.from_numpy(keys_np)
+    got = select.variant_calls(keys.to(cuda), K, BQ, CJ)[name]()
+    torch.cuda.synchronize()
+    want = select.variant_calls(keys, K, BQ, CJ, plain=True)[name]()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    kth = np.partition(keys_np, K - 1, axis=2)[..., K - 1:K]
+    if name in ("scan32", "radix8"):
+        assert np.array_equal(got.cpu().numpy(), kth)
+    elif name in ("cur", "bcast"):
+        assert np.array_equal(got.cpu().numpy(), kth + K * BQ)
+
+
+def test_kth_key_launch_counts_and_checks(cuda):
+    keys = torch.from_numpy(select.make_keys(0, 1, 8, 64)).to(cuda)
+    for fn in (select.kth_key_scan32, select.kth_key_radix8, select.kth_key_cur,
+               select.kth_key_bcast):
+        kw = dict(block_q=4, chunk_j=2) if fn in (select.kth_key_cur, select.kth_key_bcast) else {}
+        before = fn.launches
+        fn(keys, 4, **kw)
+        assert fn.launches == before + 1
+        with pytest.raises(ValueError, match="non-negative"):
+            fn(-keys - 1, 4, **kw)
+        assert fn.launches == before + 1
+    wide = torch.zeros(1, 4, 4096, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        select.kth_key_cur(wide, 64, block_q=4, chunk_j=64)
+    with pytest.raises(ValueError, match="column"):
+        select.kth_key_scan32(torch.zeros(1, 4, 4097, dtype=torch.int32, device=cuda), 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [128, 512, 1024])
+def test_knn_vector_attention_trainable_at_the_tiers_widths(cuda, dtype, D):
+    """K6 at the widths of the small, large and huge tiers, K = 32: the value,
+    and in float32 the gradients of all 14 inputs (K7 scatters D-wide rows),
+    with K1's indices on the card identical to the plain ones."""
+    rs = np.random.RandomState(D)
+    B, M, N, K = 2, 90, 400, 32
+    s = 1 / math.sqrt(D)
+    args = [_mk(rs, B, M, D), _mk(rs, B, M, 3), _mk(rs, B, N, 3), _mk(rs, B, N, D),
+            _mk(rs, D, D, scale=s), _mk(rs, D, D, scale=s),
+            _mk(rs, 3, D), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1),
+            _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s),
+            _mk(rs, D, scale=0.1)]
+    args = [a.to(dtype) if i in (0, 3) else a for i, a in enumerate(args)]
+    ct = _mk(rs, B, M, D)
+
+    def run(ts):
+        ts = [t.clone().requires_grad_() for t in ts]
+        out = knn_attn.knn_vector_attention_trainable(*ts[:6], ts[6:10], ts[10:], n_neighbor=K)
+        return out, torch.autograd.grad((out.float() * ct.to(out.device)).sum(), ts)
+
+    want, gw = run(args)
+    got, gg = run([a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        idx = [knn_attn.fused_knn_vector_attention(*ts[:6], ts[6:10], ts[10:], n_neighbor=K,
+                                                   return_idx=True)[1].cpu()
+               for ts in (args, [a.to(cuda) for a in args])]
+    assert torch.equal(*idx)
+    _close(got, want, dtype)
+    if dtype != torch.float32:
+        return
+    # The backward is the same PyTorch recompute on both sides, at identical
+    # indices. Among B * M * K * D relu inputs (millions at these widths) a few
+    # lie within float32 rounding of 0, and their derivative flips between the
+    # card and the CPU (each side then sits ~7e-3 of the peak from a float64
+    # run, on one query row). So gradients are held in the L2 norm, where one
+    # flipped unit weighs ~1e-3 and a wrong scatter or a lost term weighs ~1,
+    # and q's gradient also row by row: all but 2% of the query rows to 1e-4.
+    for i, (g, w) in enumerate(zip(gg, gw)):
+        scale = float(gw[12 if i == 13 else i].norm())
+        assert float((g.cpu() - w).norm()) <= 2e-3 * scale, i
+    row_err = (gg[0].cpu() - gw[0]).abs().amax(-1)
+    assert float((row_err > 1e-4 * float(gw[0].abs().max())).float().mean()) <= 0.02
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [128, 512, 1024])
+def test_scatter_add_rows_at_the_tiers_widths(cuda, dtype, D):
+    """K7 with D-wide rows, into 799 (self) and 4096 (cross) rows."""
+    rs = np.random.RandomState(D + 7)
+    B, M, K = 2, 200, 32
+    g = _mk(rs, B, M, K, D).to(dtype)
+    for n_rows in (799, 4096):
+        idx = torch.from_numpy(rs.randint(0, n_rows // 8, (B, M, K)).astype(np.int32) * 8)
+        want = scatter.plain_scatter_add_rows(g, idx, n_rows)
+        got = scatter.scatter_add_rows(g.to(cuda), idx.to(cuda), n_rows)
+        again = scatter.scatter_add_rows(g.to(cuda), idx.to(cuda), n_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close(got, want, torch.float32)
+
+
+def test_parametric_step_float32_gradient_conditioning(cuda):
+    """One medium_MANO train step at B1 (the inputs of chip_smoke phase 4d): the
+    float32 gradients of the CPU (8 threads and 1 thread, the same plain code) and
+    of the card against a float64 step on the CPU, per module, over the module's
+    largest gradient. The loss reaches decoder blocks 0 and 1 only through block
+    2's attention, and float32 noise there is ~1e-4 of their largest gradient on
+    every device (measured: CPU 8.95e-5 and 5.1e-5, card 2.9e-5 in block 1; blocks
+    0 and 2 <= 1.5e-5): this bounds what a card-vs-CPU comparison of the
+    parametric step can ask of the blocks (3e-4). A property of the model at
+    random weights in float32, not of a kernel."""
+    import copy
+
+    from poem_v2_tpu_torch.configs import RELEASE
+    from poem_v2_tpu_torch.data.synthetic import SyntheticMultiviewDataset
+    from poem_v2_tpu_torch.models.poem import create_poem_model, draw_ref_noise
+    from poem_v2_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = RELEASE["medium_MANO"]
+    model, aux = create_poem_model(cfg["MODEL"], device="cpu",
+                                   generator=torch.Generator().manual_seed(1))
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    raw = SyntheticMultiviewDataset(batch_size=1, view_max=4, view_range=(2, 4), image_size=256,
+                                    seed=5).sample_batch()
+    draws = draw_ref_noise(torch.Generator().manual_seed(7), 1)
+
+    def grads(dev, dtype):
+        mdl = copy.deepcopy(model).to(dev, dtype).train()
+        trainer = Trainer(mdl, aux, cfg["TRAIN"], cfg["MODEL"]["LOSS"])
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in trainer.to_device(raw).items()}
+        preds = mdl(b["image"], b["view_mask"], b["cam_intr"], b["cam_extr"],
+                    b["master_joints_3d"], ref_draws=tuple(d.to(dtype) for d in draws))
+        trainer.loss_fn(preds, b)[0].backward()
+        return {n: p.grad.detach().cpu().double() for n, p in mdl.named_parameters()
+                if p.grad is not None}
+
+    def blocks(got, ref):
+        out = {}
+        for n, r in ref.items():
+            parts = n.split(".")
+            if parts[:2] != ["head", "transformer"]:
+                continue
+            err, scale = out.get(parts[2], (0.0, 0.0))
+            out[parts[2]] = (max(err, float((got[n] - r).abs().max())),
+                             max(scale, float(r.abs().max())))
+        return {k: e / s for k, (e, s) in out.items()}
+
+    ref = grads("cpu", torch.float64)
+    threads = torch.get_num_threads()
+    runs = {"cpu": grads("cpu", torch.float32), "card": grads(cuda, torch.float32)}
+    torch.set_num_threads(1)
+    try:
+        runs["cpu, 1 thread"] = grads("cpu", torch.float32)
+    finally:
+        torch.set_num_threads(threads)
+    for name, got in runs.items():
+        rel = blocks(got, ref)
+        print(f"{name} vs float64, max |dgrad| / max |grad| per block: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        assert set(rel) == {"block_0", "block_1", "block_2"}
+        assert max(rel.values()) <= 3e-4, (name, rel)

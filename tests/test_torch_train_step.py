@@ -52,20 +52,25 @@ class _RefDraws(fnn.Module):
                 jax.random.uniform(k3, (1,)))
 
 
-def _cfg():
+def _cfg(parametric=False):
     cfg = tiny_cfg(norm="frozen_bn")
     cfg.HEAD.TRANSFORMER.DROPOUT = 0.0
+    if parametric:
+        cfg.HEAD.TRANSFORMER.PARAMETRIC_OUTPUT = True
+        cfg.HEAD.TRANSFORMER.TRANSFORMER_CENTER_IDX = 9
+        cfg.LOSS.POSE_LOSS_WEIGHT = 0.001
+        cfg.LOSS.SHAPE_LOSS_WEIGHT = 0.0005
     return cfg
 
 
-@pytest.fixture(scope="module")
-def jax_step():
+def _run_jax_step(cfg, tweak_params=None):
+    """One JAX value_and_grad + optimiser update of ``cfg``'s model on the
+    fixed batch; ``tweak_params(params)`` edits the filled parameters first."""
     from poem_v2_tpu.data.synthetic import SyntheticMultiviewDataset
     from poem_v2_tpu.models.losses import poem_loss
     from poem_v2_tpu.models.poem import create_poem_model
     from poem_v2_tpu.training.optim import build_optimizer
 
-    cfg = _cfg()
     batch = SyntheticMultiviewDataset(batch_size=2, view_max=3, view_range=(1, 3),
                                       image_size=64, seed=2).sample_batch()
     assert sorted(batch["view_mask"].sum(1)) == [1, 3]
@@ -76,6 +81,8 @@ def jax_step():
     shapes = jax.eval_shape(lambda: model.init(
         {"params": rng, "noise": rng, "dropout": rng}, *args, train=False))
     variables = fill_params(shapes, gain=0.5)
+    if tweak_params is not None:
+        tweak_params(variables["params"])
     _, noise_rng, drop_rng = jax.random.split(jax.random.PRNGKey(1), 3)
     draws = _RefDraws().apply({}, 2, rngs={"noise": noise_rng})
     j_reg = aux["mano_layer"].j_regressor
@@ -84,7 +91,8 @@ def jax_step():
         preds = model.apply({"params": params}, *args, train=True,
                             rngs={"noise": noise_rng, "dropout": drop_rng})
         loss, loss_dict = poem_loss(preds, jb, j_regressor=j_reg, loss_cfg=cfg.LOSS,
-                                    transformer_center_idx=aux["transformer_center_idx"])
+                                    transformer_center_idx=aux["transformer_center_idx"],
+                                    parametric=aux.get("parametric_output", False))
         return loss, (loss_dict, preds["pred_ref_joints_3d"])
 
     with pallas_interpret(), jax.default_matmul_precision("highest"):
@@ -101,7 +109,11 @@ def jax_step():
 
 
 @pytest.fixture(scope="module")
-def torch_step(jax_step):
+def jax_step():
+    return _run_jax_step(_cfg())
+
+
+def _run_torch_step(jax_step):
     cfg = jax_step["cfg"]
     model, aux = torch_create(cfg, device="cpu")
     load_converted(model, jax_step["variables"])
@@ -120,6 +132,11 @@ def torch_step(jax_step):
                 names=[n for n, _ in model.named_parameters()])
 
 
+@pytest.fixture(scope="module")
+def torch_step(jax_step):
+    return _run_torch_step(jax_step)
+
+
 def test_reference_draws_reproduce_the_jax_jitter(jax_step):
     """The draws fed to the port are the ones the JAX train forward took."""
     from poem_v2_tpu_torch.models.poem import jitter_reference_joints
@@ -130,6 +147,10 @@ def test_reference_draws_reproduce_the_jax_jitter(jax_step):
 
 
 def test_train_step_loss_terms_match_jax(jax_step, torch_step):
+    _check_loss_terms(jax_step, torch_step)
+
+
+def _check_loss_terms(jax_step, torch_step):
     metrics = torch_step["metrics"]
     assert set(metrics) == set(jax_step["loss_dict"]) | {"grad_norm"}
     for k, want in jax_step["loss_dict"].items():
@@ -151,6 +172,10 @@ def _module(key):
 def test_train_step_gradients_match_jax(jax_step, torch_step):
     """Every parameter's gradient (zeros where one side has none), per module:
     max |port - JAX| <= 1e-4 x the module's max |JAX gradient|."""
+    _check_gradients(jax_step, torch_step)
+
+
+def _check_gradients(jax_step, torch_step):
     got = torch_step["grads"]
     assert set(torch_step["names"]) <= set(jax_step["grads"])
     groups = {}
@@ -175,6 +200,10 @@ def test_train_step_updated_params_match_jax(jax_step, torch_step):
     side); all elements agree to 2 lr. Per module, the parameters agree to
     1e-4 of the module's largest (measured: 8.5e-7, the backbone; no
     element's update flipped sign)."""
+    _check_updated_params(jax_step, torch_step)
+
+
+def _check_updated_params(jax_step, torch_step, firm_floor=0.0):
     lr = jax_step["cfg"].TRAIN.LR
     params = dict(torch_step["model"].named_parameters())
     groups = {}
@@ -182,7 +211,7 @@ def test_train_step_updated_params_match_jax(jax_step, torch_step):
         want = jax_step["new_params"][key]
         got = got.detach().numpy()
         g = np.abs(jax_step["grads"][key])
-        firm = g > 1e-3 * g.max() if g.max() > 0 else np.zeros_like(g, bool)
+        firm = g > max(1e-3 * g.max(), firm_floor) if g.max() > 0 else np.zeros_like(g, bool)
         diff = np.abs(got - want)
         assert diff.max() <= 2 * lr * (1 + 1e-3), key
         lim = 1e-3 * lr + 2 * np.spacing(np.abs(want[firm]).astype(np.float32))
@@ -191,6 +220,61 @@ def test_train_step_updated_params_match_jax(jax_step, torch_step):
         groups[_module(key)] = (max(err, float(diff.max())), max(scale, float(np.abs(want).max())))
     for name, (err, scale) in groups.items():
         assert err <= GRAD_REL * scale, f"{name}: {err:.3e} vs max {scale:.3e}"
+
+
+# ---- the parametric (MANO pose and shape) train step --------------------------
+
+@pytest.fixture(scope="module")
+def jax_step_mano():
+    return _run_jax_step(_cfg(parametric=True))
+
+
+@pytest.fixture(scope="module")
+def torch_step_mano(jax_step_mano):
+    return _run_torch_step(jax_step_mano)
+
+
+def test_parametric_train_step_loss_terms_match_jax(jax_step_mano, torch_step_mano):
+    """A tiny ``PARAMETRIC_OUTPUT`` model: the same step with the MANO surface as
+    the last block's coordinates, root-relative vertices and the pose / shape
+    terms, all to the same 1e-5 relative (measured <= 4.3e-7; ``loss_pose``
+    6.3e-8: its 1.88 is dominated by rotations far from the small ground-truth
+    pose, so the ~3e-4 rad the two packages differ by where a regressed 6D row is
+    short moves it little)."""
+    assert {"loss_pose", "loss_shape"} <= set(jax_step_mano["loss_dict"])
+    assert float(jax_step_mano["loss_dict"]["loss_pose"]) > 0.1
+    _check_loss_terms(jax_step_mano, torch_step_mano)
+
+
+def test_parametric_train_step_gradients_match_jax(jax_step_mano, torch_step_mano):
+    """Gradients per module to 1e-4 of the module's largest, through the float32
+    6D -> axis-angle -> MANO chain; the leaves only this head has take gradients
+    that are not 0, and each agrees to 1e-4 of its own largest (measured <=
+    4.9e-5, ``flat_verts.bias``, one number; the rest <= 5.9e-6). The name map of
+    ``convert.py`` is the optimiser's too: the JAX gradients and the JAX-updated
+    parameters are carried across by it leaf by leaf."""
+    _check_gradients(jax_step_mano, torch_step_mano)
+    block = "head.transformer.block_1."
+    for leaf in ("flat_verts.weight", "flat_verts.bias", "mano_linear.weight",
+                 "mano_linear.bias"):
+        want = jax_step_mano["grads"][block + leaf]
+        got = torch_step_mano["grads"][block + leaf].numpy()
+        assert got.shape == want.shape and np.abs(want).max() > 0, leaf
+        assert np.abs(got - want).max() <= GRAD_REL * np.abs(want).max(), leaf
+    # only the final block regresses the MANO parameters
+    assert "head.transformer.block_0.mano_linear.weight" not in torch_step_mano["names"]
+
+
+def test_parametric_train_step_updated_params_match_jax(jax_step_mano, torch_step_mano):
+    """As the test above, with "firm" also meaning |g| > 1e-5, 1e3 x Adam's eps:
+    a multi-head attention's key bias shifts all logits of a query alike, so its
+    exact gradient is 0 and the whole tensor is float32 noise of the size of eps,
+    where the update is a fraction of lr that follows the noise (here 2e-3 lr
+    apart). ``flat_verts`` and ``mano_linear`` are held as every other leaf."""
+    _check_updated_params(jax_step_mano, torch_step_mano, firm_floor=1e-5)
+    firm = [np.abs(jax_step_mano["grads"]["head.transformer.block_1." + leaf]).max() > 1e-5
+            for leaf in ("flat_verts.weight", "mano_linear.weight", "mano_linear.bias")]
+    assert all(firm)
 
 
 def test_float32_params_with_bfloat16_compute():
