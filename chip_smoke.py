@@ -13,12 +13,16 @@ non-zero:
    take (bytes over 3.35 TB/s or operations over the peak of the dtype):
    K1-K5 and K8 at the serving path's batch-4 shapes (K5 bit-identical),
    K1-K5 also at D = 128, 512 and 1024, the other tiers' widths (against
-   the plain version on the card);
+   the plain version on the card); K3 also at batch 1 with a key count that
+   is no multiple of any tile (4100), and its row logsumexp against the plain
+   one (1e-5 absolute) in every K3 case;
 1b. the training kernels at the train path's batch-4 shapes, D = 256 and then
-   D = 128, 512 and 1024 (on the card): K3b (dQ, dK, dV; 4 heads of D / 4), K6
-   (value, and in float32 all 14 input gradients; self and cross) and K7
-   (n_rows 799 and 4096, heavily duplicated indices, two launches
-   bit-identical);
+   D = 128, 512 and 1024 (on the card): K3b (dQ, dK, dV; 4 heads of D / 4;
+   from the forward's saved output and logsumexp, which is what is timed; two
+   launches bit-identical; the same bits without the saved pair; also at
+   batch 1 with 4100 keys), K6 (value, and in float32 all 14 input gradients;
+   self and cross) and K7 (n_rows 799 and 4096, heavily duplicated indices,
+   two launches bit-identical);
 1c. K9, the bucketed exact-KNN attention, on the real BPS cloud (4096 points
    in 32 k-d buckets of 128) with 799 queries on a posed hand, batch 4,
    D = 256 (and once D = 1024): against its plain version on the card
@@ -165,6 +169,9 @@ KEEP_F32 = {
 # intermediates that are rounded to bfloat16 (x, h, t1 and the output) were
 # summed, about one bfloat16 ulp (2**-8 relative) at the output's peak
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K3's row logsumexp is float32 in both dtypes, absolute: both sides sum the
+# same exact products of the inputs in float32, in other orders
+LSE_TOL = 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory, bfloat16 in the tensor cores, float32 outside them
 PEAK_BYTES_PER_S = 3.35e12
@@ -322,7 +329,7 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
         "dense_cross_attention": dict(
             kernel="dense_cross_attention", args=(q, f(B, N, D), f(B, N, D)),
             kw=dict(num_heads=4, sm_scale=1 / 8), plain=cross_attn.plain_dense_cross_attention,
-            flops=4.0 * B * M * N * D, library=sdpa),
+            flops=4.0 * B * M * N * D, library=sdpa, lse=True),
         "grid_sample_points_fused": dict(
             kernel="grid_sample_points_fused",
             args=(f(B * V, 16, 16, D), torch.from_numpy(rs.uniform(-1.2, 1.2, (B * V, N, 2))
@@ -361,7 +368,7 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             kernel="dense_cross_attention", args=(qw, fw(B, N, Dw), fw(B, N, Dw)),
             kw=dict(num_heads=4, sm_scale=1 / math.sqrt(Dw // 4)),
             plain=cross_attn.plain_dense_cross_attention, flops=4.0 * B * M * N * Dw,
-            library=sdpa, plain_on_card=True)
+            library=sdpa, plain_on_card=True, lse=True)
         cases[f"wide/grid_sample_points_fused/D{Dw}"] = dict(
             kernel="grid_sample_points_fused",
             args=(fw(B * V, 16, 16, Dw), cases["grid_sample_points_fused"]["args"][1]), kw={},
@@ -371,7 +378,27 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             kernel="scrambled_merge_gather", args=(fw(B, V * N * Dw), n_val),
             kw=dict(V=V, C=Dw), plain=scramble.plain_scrambled_merge_gather, flops=0.0,
             library=gather, in_bytes=scramble_in_bytes, exact=True, plain_on_card=True)
+    # K3 where no tile divides the keys, one sample
+    cases[f"ragged/dense_cross_attention/B1_N{N + 4}"] = dict(
+        kernel="dense_cross_attention", args=(f(1, M, D), f(1, N + 4, D), f(1, N + 4, D)),
+        kw=dict(num_heads=4, sm_scale=1 / math.sqrt(D // 4)),
+        plain=cross_attn.plain_dense_cross_attention, flops=4.0 * M * (N + 4) * D,
+        library=sdpa, plain_on_card=True, lse=True)
     return cases
+
+
+def check_lse(name, got, want, dtype):
+    """K3's second output against the plain logsumexp, ``LSE_TOL`` absolute."""
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"{name}: lse {tuple(got.shape)} {got.dtype}, plain "
+                             f"{tuple(want.shape)}")
+    err = float((got.detach().cpu() - want.detach().cpu()).abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= LSE_TOL
+    log(f"  {name} [{_dt(dtype)}] lse max_abs_err={err:.3e} (tol {LSE_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: lse max_abs_err {err} > {LSE_TOL}")
+    return err
 
 
 def phase_kernels(results, **shapes):
@@ -401,6 +428,13 @@ def phase_kernels(results, **shapes):
                     n_diff = int((gidx.cpu() != widx.cpu()).sum())
                     raise AssertionError(f"{case}: {n_diff} neighbour indices differ")
             err = compare(case, got, want, dtype, tol_rel=0.0 if c.get("exact") else None)
+            lse_err = None
+            if c.get("lse"):
+                _, lse = cross_attn.dense_cross_attention_forward(*dev_args, **kw,
+                                                                  return_lse=True)
+                qk = (dev_args if c.get("plain_on_card") else cpu_args)[:2]
+                lse_err = check_lse(case, lse, cross_attn.plain_dense_cross_attention_lse(
+                    *qk, **kw), dtype)
             ms = time_cuda(lambda: wrapper(*dev_args, **kw))
             plain_ms = time_cuda(lambda: plain(*dev_args, **kw), iters=3, warmup=1)
             library_ms = None
@@ -414,6 +448,8 @@ def phase_kernels(results, **shapes):
             results.setdefault(case, {})[_dt(dtype)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by)
+            if lse_err is not None:
+                results[case][_dt(dtype)]["lse_max_abs_err"] = lse_err
 
 
 # K6's gradients are held in float32 only. Its backward reruns the same
@@ -431,12 +467,71 @@ K7_TOL = 1e-5
 def phase_train_kernels(results, B=4, M=799, D=256, K=32, N=4096, wide=(128, 512, 1024)):
     """Phase 1b: K3b, K6 and K7 against their plain versions at the train path's
     shapes: at D on CPU copies of the inputs, at the ``wide`` widths of the other
-    tiers on the card."""
+    tiers on the card; then K3b alone at one sample and a key count that no
+    tile divides."""
     log("phase 1b: training kernels vs plain versions")
     rs = np.random.RandomState(1)
     train_kernel_cases(results, rs, B, M, D, K, N, on_card=False)
     for Dw in wide:
         train_kernel_cases(results, rs, B, M, Dw, K, N, on_card=True)
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    dense_bwd_case(results, f"ragged/dense_cross_attention_bwd/B1_N{N + 4}",
+                   (f(1, M, D), f(1, N + 4, D), f(1, N + 4, D), f(1, M, D)), 4,
+                   1 / math.sqrt(D // 4), on_card=True, iters=5)
+
+
+def dense_bwd_case(results, name, qkvd, heads, sm_scale, on_card, iters):
+    """K3b on (q, k, v, dout): dQ, dK, dV from the forward's saved output and
+    logsumexp against the plain backward (on the card if ``on_card``, else on
+    CPU copies), a second launch and a call without the saved pair bit for bit
+    the same, and the saved-pair call timed."""
+    B, M, D = qkvd[0].shape
+    N = qkvd[1].shape[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = [t.to(dtype) for t in qkvd]
+        dev = _to(cpu, "cuda")
+        with torch.no_grad():
+            out, lse = cross_attn.dense_cross_attention_forward(*dev[:3], heads, sm_scale,
+                                                                return_lse=True)
+        bwd = lambda: cross_attn.dense_cross_attention_bwd(*dev, heads, sm_scale, out=out,
+                                                           lse=lse)
+        got, again = bwd(), bwd()
+        unsaved = cross_attn.dense_cross_attention_bwd(*dev, heads, sm_scale)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"  {name} [{_dt(dtype)}] two launches bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"{name}: two launches differ")
+        # without the saved pair the wrapper runs the forward first: the same
+        # kernels, so the same bits
+        for n, g, u in zip("qkv", got, unsaved):
+            compare(f"{name} d{n} without saved (out, lse)", u, g, dtype, tol_rel=0.0)
+        side = dev if on_card else cpu
+        want = cross_attn.plain_dense_cross_attention_bwd(*side, heads, sm_scale)
+        lse_err = check_lse(name, lse, cross_attn.plain_dense_cross_attention_lse(
+            *side[:2], heads, sm_scale), dtype)
+        err = max(compare(f"{name} d{n}", g, w, dtype) for n, g, w in zip("qkv", got, want))
+        ms = time_cuda(bwd, iters=iters)
+        plain_ms = time_cuda(
+            lambda: cross_attn.plain_dense_cross_attention_bwd(*dev, heads, sm_scale),
+            iters=3, warmup=1)
+        # the library call: the backward of F.scaled_dot_product_attention,
+        # which also starts from its saved output and logsumexp
+        leaves = [t.detach().requires_grad_() for t in dev[:3]]
+        qh, kh, vh = sdpa_heads(*leaves, heads)
+        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, scale=sm_scale)
+        dout = dev[3].reshape(B, M, heads, -1).transpose(1, 2)
+        library_ms = time_cuda(
+            lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+        # S, dP, dQ, dK and dV: five (M, N, hd) products a head
+        b_ms, b_by = bound_ms(_nbytes(cpu) + _nbytes([out, lse]) + _nbytes(got),
+                              10.0 * B * M * N * D, dtype)
+        log(f"  {name} [{_dt(dtype)}] kernel {ms:.3f} ms, "
+            f"plain (autograd) on card {plain_ms:.3f} ms, library call {library_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        results.setdefault(name, {})[_dt(dtype)] = dict(
+            max_abs_err=err, lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def train_kernel_cases(results, rs, B, M, D, K, N, on_card):
@@ -449,35 +544,9 @@ def train_kernel_cases(results, rs, B, M, D, K, N, on_card):
     heads, sm_scale, s = 4, 1 / math.sqrt(D // 4), 1 / math.sqrt(D)
 
     # K3b: dQ, dK, dV of the dense attention
-    qkvd = (f(B, M, D), f(B, N, D), f(B, N, D), f(B, M, D))
-    for dtype in (torch.float32, torch.bfloat16):
-        cpu = [t.to(dtype) for t in qkvd]
-        dev = _to(cpu, "cuda")
-        name = tag("dense_cross_attention_bwd")
-        got = cross_attn.dense_cross_attention_bwd(*dev, heads, sm_scale)
-        torch.cuda.synchronize()
-        want = cross_attn.plain_dense_cross_attention_bwd(*(dev if on_card else cpu), heads,
-                                                          sm_scale)
-        err = max(compare(f"{name} d{n}", g, w, dtype) for n, g, w in zip("qkv", got, want))
-        ms = time_cuda(lambda: cross_attn.dense_cross_attention_bwd(*dev, heads, sm_scale),
-                       iters=iters)
-        plain_ms = time_cuda(
-            lambda: cross_attn.plain_dense_cross_attention_bwd(*dev, heads, sm_scale),
-            iters=3, warmup=1)
-        # the library call: the backward of F.scaled_dot_product_attention
-        leaves = [t.detach().requires_grad_() for t in dev[:3]]
-        qh, kh, vh = sdpa_heads(*leaves, heads)
-        out = F.scaled_dot_product_attention(qh, kh, vh, scale=sm_scale)
-        dout = dev[3].reshape(B, M, heads, -1).transpose(1, 2)
-        library_ms = time_cuda(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
-        # S, dP, dQ, dK and dV: five (M, N, hd) products a head
-        b_ms, b_by = bound_ms(_nbytes(cpu) + _nbytes(got), 10.0 * B * M * N * D, dtype)
-        log(f"  {name} [{_dt(dtype)}] kernel {ms:.3f} ms, "
-            f"plain (autograd) on card {plain_ms:.3f} ms, library call {library_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        results.setdefault(name, {})[_dt(dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-            bound_by=b_by)
+    dense_bwd_case(results, tag("dense_cross_attention_bwd"),
+                   (f(B, M, D), f(B, N, D), f(B, N, D), f(B, M, D)), heads, sm_scale, on_card,
+                   iters)
 
     # K6: value and the gradients of its 14 inputs, self (M points) and cross (N)
     q, qxyz, ct = f(B, M, D), f(B, M, 3) * 0.4, f(B, M, D)
@@ -1236,7 +1305,7 @@ def phase_train(results):
 
 # device kernels by name: the port's kernels, and the largest other groups
 PROFILE_GROUPS = (
-    ("K3 dense_attn_*kernel", ("dense_attn_kernel", "dense_attn_tc_kernel")),
+    ("K3 dense_attn_*kernel", ("dense_attn_kernel", "dense_attn_wg_kernel")),
     ("K3b dense_attn_bwd_*", "dense_attn_bwd_"),
     ("K1 (K6 fwd) knn_select + vector_attn", ("knn_select_kernel", "vector_attn_kernel")),
     ("K7 scatter_*", "scatter_"),

@@ -10,23 +10,29 @@
 // keys, 4 heads of 64) it is 4 * M * N * hd multiply-adds per batch
 // element against only (M + 2N) * H elements of input, so it is
 // arithmetic-bound; the (M, N) logits must never reach device memory.
+// In bfloat16 the bound is the tensor cores' rate, which only `wgmma`
+// reaches: the bfloat16 kernels (second half of the file) are built around
+// it, with TMA loads that complete on mbarriers and every intermediate in
+// registers; their design is described there.
 //
-// Design (flash-style, simple first): one block of 256 threads per
-// (query tile of 16, head, batch element). It loops over key tiles of 64,
-// staging K and V in shared memory as float32, computes the 16 x 64 score
-// tile, folds it into an online softmax kept in float32 (each row's max and
-// sum are shared by the 16 threads that own the row), accumulates P V in
-// registers and divides by the row sum at the end. P stays float32 (the TPU
-// kernel rounds the unnormalised P to bf16 before P V; the port does not).
-// That FMA kernel serves float32 at head dims from 32 to 256 in steps of
-// 16. bfloat16 runs `dense_attn_tc_kernel` below on the tensor cores
-// (WMMA; wgmma and TMA are later work), at head dims 32, 64, 128 and 256
-// on 16-byte aligned tensors; the wrapper rejects anything else.
-#include <mma.h>
+// float32 (first half of the file) has no tensor-core path at full
+// precision and serves the parity checks only; it stays a simple
+// flash-style FMA kernel: one block of 256 threads per (query tile of 16,
+// head, batch element). It loops over key tiles of 64, staging K and V in
+// shared memory as float32, computes the 16 x 64 score tile, folds it into
+// an online softmax kept in float32 (each row's max and sum are shared by
+// the 16 threads that own the row), accumulates P V in registers and
+// divides by the row sum at the end. P stays float32 there. It takes head
+// dims from 32 to 256 in steps of 16; bfloat16 takes head dims 32, 64, 128
+// and 256 on 16-byte aligned tensors; the wrapper rejects anything else.
+// Both forwards can write the row logsumexp (float32, (B, heads, M)), which
+// the backward takes beside the output.
+#include <cuda.h>
 
 #include <initializer_list>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace poem {
 
@@ -37,8 +43,8 @@ constexpr int CA_MAX_HD = 256;
 
 __global__ void __launch_bounds__(CA_THREADS)
     dense_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, int M, int N, int H,
-                      int hd, float scale) {
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse_out, int M, int N, int H, int hd, float scale) {
   extern __shared__ float smem[];
   const int ks = hd + 1;                  // padded K row: conflict-free column reads
   float* Qs = smem;                       // [BQ][hd]
@@ -49,7 +55,7 @@ __global__ void __launch_bounds__(CA_THREADS)
   const int t = threadIdx.x;
   const int row = t / 16, lane16 = t % 16;
   const int m0 = blockIdx.x * CA_BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
   const int hoff = h * hd;
   const int n_out = hd / 16;              // output columns per thread
 
@@ -126,11 +132,14 @@ __global__ void __launch_bounds__(CA_THREADS)
     for (int i = 0; i < CA_MAX_HD / 16; ++i) {
       if (i < n_out) out[((size_t)b * M + m) * H + hoff + lane16 + 16 * i] = o[i] * inv;
     }
+    if (lse_out != nullptr && lane16 == 0)
+      lse_out[((size_t)b * nh + h) * M + m] = m_run + logf(l_run);
   }
 }
 
-cudaError_t launch_dense_attn(const void* q, const void* k, const void* v, void* out, int B,
-                              int M, int N, int H, int nh, float scale, cudaStream_t stream) {
+cudaError_t launch_dense_attn(const void* q, const void* k, const void* v, void* out, void* lse,
+                              int B, int M, int N, int H, int nh, float scale,
+                              cudaStream_t stream) {
   const int hd = H / nh;
   auto kernel = dense_attn_kernel;
   const size_t smem =
@@ -139,7 +148,7 @@ cudaError_t launch_dense_attn(const void* q, const void* k, const void* v, void*
   if (err != cudaSuccess) return err;
   dim3 grid((M + CA_BQ - 1) / CA_BQ, nh, B);
   kernel<<<grid, CA_THREADS, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
-                                             (float*)out, M, N, H, hd, scale);
+                                             (float*)out, (float*)lse, M, N, H, hd, scale);
   return cudaGetLastError();
 }
 
@@ -148,23 +157,25 @@ cudaError_t launch_dense_attn(const void* q, const void* k, const void* v, void*
 //
 // The TPU kernel keeps a whole (M, N) float32 P per head in VMEM (13 MB at
 // 799 x 4096), far beyond the 227 KB of shared memory a block has. So the
-// backward is flash-style recompute in two passes that never store P:
+// backward is flash-style recompute from the forward's saved output and
+// logsumexp, in passes that never store P:
 //
-// * `dense_attn_bwd_dq_kernel` owns 16 query rows of one head. Sweep 1 over
-//   the key tiles recomputes the row's logsumexp and
-//   D = rowsum(P * dP) = sum_j p_j (dO . v_j) with an online rescale;
-//   sweep 2 recomputes P = exp(s - lse), dS = P * (dP - D) * scale and
-//   accumulates dQ = dS K. It writes lse and D for the second pass.
+// * `dense_attn_bwd_stats_kernel`: D = rowsum(dO * O) of each (row, head),
+//   which equals rowsum(P * dP), paired with the row's lse; one warp a row.
+// * `dense_attn_bwd_dq_kernel` owns 16 query rows of one head: one sweep
+//   over the key tiles recomputes P = exp(s - lse),
+//   dS = P * (dP - D) * scale and accumulates dQ = dS K.
 // * `dense_attn_bwd_dkv_kernel` owns 16 keys of one head and loops over
 //   query tiles: dV = P^T dO and dK = dS^T Q accumulate in registers, so
 //   no two blocks write one output and no atomics are needed.
 //
-// It is arithmetic-bound like the forward (about 4 products of hd per
-// (query, key) pair against the forward's 2). Everything stays float32,
-// including P and dS, where the TPU kernel rounds them to the input dtype
-// before its matrix products. Padded keys (N not a multiple of the tile)
-// get p = 0, as the TPU kernel masks keys past n_valid. These FMA kernels
-// take float32; bfloat16 runs the tensor-core kernels further down.
+// It is arithmetic-bound like the forward (5 products of hd per (query,
+// key) pair are needed, the two passes do 7, against the forward's 2).
+// Everything stays float32 here, including P and dS, where the TPU kernel
+// rounds them to the input dtype before its matrix products. Padded keys
+// (N not a multiple of the tile) get p = 0, as the TPU kernel masks keys
+// past n_valid. These FMA kernels take float32; bfloat16 runs the
+// tensor-core kernels further down.
 constexpr int CB_BQ = 16;    // dq pass: query rows per block
 constexpr int CB_BK = 64;    // dq pass: keys per tile
 constexpr int CB_BKV = 16;   // dkv pass: keys per block
@@ -180,12 +191,51 @@ __device__ __forceinline__ void load_rows(float* dst, int stride, const float* _
   }
 }
 
+// stats (B, nh, M_pad) pairs (lse * lse_mul, delta), delta = rowsum over one
+// head's columns of dout * out, both (B, M, H); one warp a row. M_pad rounds M
+// up to the most rows a block owns, and the rows past M hold (+inf, 0): a
+// zero row of Q and dO with that pair has P = 0 and dS = 0.
+constexpr int STATS_PAD = 128;
+inline int stats_rows(int M) { return (M + STATS_PAD - 1) / STATS_PAD * STATS_PAD; }
+
+template <typename T>
+__global__ void __launch_bounds__(CA_THREADS)
+    dense_attn_bwd_stats_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                                const float* __restrict__ lse, float2* __restrict__ stats,
+                                float lse_mul, int B, int M, int M_pad, int H, int nh) {
+  const size_t w = ((size_t)blockIdx.x * CA_THREADS + threadIdx.x) / 32;  // (b, h, m)
+  const int lane = threadIdx.x % 32;
+  if (w >= (size_t)B * nh * M_pad) return;
+  const int m = (int)(w % M_pad), hd = H / nh;
+  const size_t bh = w / M_pad;
+  if (m >= M) {
+    if (lane == 0) stats[w] = make_float2(INFINITY, 0.0f);
+    return;
+  }
+  const size_t at = ((bh / nh) * M + m) * H + (bh % nh) * hd;
+  float acc = 0.0f;
+  for (int c = lane; c < hd; c += 32) acc = fmaf(to_f32(out[at + c]), to_f32(dout[at + c]), acc);
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
+  if (lane == 0) stats[w] = make_float2(lse[bh * M + m] * lse_mul, acc);
+}
+
+template <typename T>
+cudaError_t launch_stats(const void* out, const void* dout, const void* lse, void* stats,
+                         float lse_mul, int B, int M, int H, int nh, cudaStream_t stream) {
+  const int M_pad = stats_rows(M);
+  const size_t warps = (size_t)B * nh * M_pad;
+  const unsigned blocks = (unsigned)((warps * 32 + CA_THREADS - 1) / CA_THREADS);
+  dense_attn_bwd_stats_kernel<T><<<blocks, CA_THREADS, 0, stream>>>(
+      (const T*)out, (const T*)dout, (const float*)lse, (float2*)stats, lse_mul, B, M, M_pad, H,
+      nh);
+  return cudaGetLastError();
+}
+
 __global__ void __launch_bounds__(CA_THREADS)
     dense_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ dout,
-                             float* __restrict__ dq, float* __restrict__ lse_out,
-                             float* __restrict__ delta_out, int M, int N, int H, int hd,
-                             float scale) {
+                             const float2* __restrict__ stats, float* __restrict__ dq, int M,
+                             int M_pad, int N, int H, int hd, float scale) {
   extern __shared__ float smem[];
   const int ks = hd + 1;
   float* Qs = smem;                  // [BQ][hd]
@@ -222,43 +272,11 @@ __global__ void __launch_bounds__(CA_THREADS)
     for (int i = 0; i < 4; ++i) s[i] = (n0 + lane16 + 16 * i < N) ? s[i] * scale : -INFINITY;
   };
 
-  // sweep 1: logsumexp and D = sum_j p_j dp_j of each row
-  float m_run = -INFINITY, l_run = 0.0f, d_run = 0.0f;
-  for (int n0 = 0; n0 < N; n0 += CB_BK) {
-    __syncthreads();
-    load_rows(Ks, ks, kb, n0, CB_BK, N, H, hoff, hd);
-    load_rows(Vs, ks, vb, n0, CB_BK, N, H, hoff, hd);
-    __syncthreads();
-    float s[4], dp[4];
-    scores(n0, s, dp);
-    float tmax = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
-    for (int off = 8; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xFFFFFFFFu, tmax, off));
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = expf(m_run - m_new);
-    float psum = 0.0f, pd = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = expf(s[i] - m_new);
-      psum += p;
-      pd = fmaf(p, dp[i], pd);
-    }
-    for (int off = 8; off > 0; off >>= 1) {
-      psum += __shfl_xor_sync(0xFFFFFFFFu, psum, off);
-      pd += __shfl_xor_sync(0xFFFFFFFFu, pd, off);
-    }
-    l_run = l_run * corr + psum;
-    d_run = d_run * corr + pd;
-    m_run = m_new;
-  }
-  const float lse = m_run + logf(l_run);
-  const float delta = d_run / l_run;
   const int m = m0 + row;
-  if (lane16 == 0 && m < M) {
-    lse_out[((size_t)b * nh + h) * M + m] = lse;
-    delta_out[((size_t)b * nh + h) * M + m] = delta;
-  }
+  const float2 stat = stats[((size_t)b * nh + h) * M_pad + min(m, M - 1)];
+  const float lse = stat.x, delta = stat.y;
 
-  // sweep 2: dQ = sum_j dS_j k_j
+  // dQ = sum_j dS_j k_j
   float acc[CA_MAX_HD / 16];
 #pragma unroll
   for (int i = 0; i < CA_MAX_HD / 16; ++i) acc[i] = 0.0f;
@@ -295,9 +313,9 @@ __global__ void __launch_bounds__(CA_THREADS)
 __global__ void __launch_bounds__(CA_THREADS)
     dense_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ lse_in,
-                              const float* __restrict__ delta_in, float* __restrict__ dk,
-                              float* __restrict__ dv, int M, int N, int H, int hd, float scale) {
+                              const float2* __restrict__ stats, float* __restrict__ dk,
+                              float* __restrict__ dv, int M, int M_pad, int N, int H, int hd,
+                              float scale) {
   extern __shared__ float smem[];
   const int ks = hd + 1;
   float* Ks = smem;                  // [BKV][hd + 1]
@@ -317,8 +335,7 @@ __global__ void __launch_bounds__(CA_THREADS)
   const int n_out = hd / 16;
   const float* qb = q + (size_t)b * M * H;
   const float* ob = dout + (size_t)b * M * H;
-  const float* lb = lse_in + ((size_t)b * nh + h) * M;
-  const float* db = delta_in + ((size_t)b * nh + h) * M;
+  const float2* sb = stats + ((size_t)b * nh + h) * M_pad;
 
   load_rows(Ks, ks, k + (size_t)b * N * H, n0, CB_BKV, N, H, hoff, hd);
   load_rows(Vs, ks, v + (size_t)b * N * H, n0, CB_BKV, N, H, hoff, hd);
@@ -333,8 +350,8 @@ __global__ void __launch_bounds__(CA_THREADS)
     load_rows(Os, ks, ob, m0, CB_BQT, M, H, hoff, hd);
     if (t < CB_BQT) {
       const int m = min(m0 + t, M - 1);
-      Ls[t] = lb[m];
-      Dl[t] = db[m];
+      Ls[t] = sb[m].x;
+      Dl[t] = sb[m].y;
     }
     __syncthreads();
     float s[4], dp[4];
@@ -381,19 +398,23 @@ __global__ void __launch_bounds__(CA_THREADS)
   }
 }
 
-cudaError_t launch_dense_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                  void* dq, void* dk, void* dv, void* lse, void* delta, int B,
-                                  int M, int N, int H, int nh, float scale, cudaStream_t stream) {
+cudaError_t launch_dense_attn_bwd(const void* q, const void* k, const void* v, const void* out,
+                                  const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                                  void* stats, int B, int M, int N, int H, int nh, float scale,
+                                  cudaStream_t stream) {
   const int hd = H / nh;
   const int ks = hd + 1;
+  const int M_pad = stats_rows(M);
+  cudaError_t err = launch_stats<float>(out, dout, lse, stats, 1.0f, B, M, H, nh, stream);
+  if (err != cudaSuccess) return err;
   auto dq_kernel = dense_attn_bwd_dq_kernel;
   const size_t smem_dq =
       sizeof(float) * ((size_t)2 * CB_BQ * hd + 2 * CB_BK * ks + CB_BQ * CB_BK);
-  cudaError_t err = allow_smem(dq_kernel, smem_dq);
+  err = allow_smem(dq_kernel, smem_dq);
   if (err != cudaSuccess) return err;
   dq_kernel<<<dim3((M + CB_BQ - 1) / CB_BQ, nh, B), CA_THREADS, smem_dq, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (float*)dq,
-      (float*)lse, (float*)delta, M, N, H, hd, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float2*)stats, (float*)dq, M, M_pad, N, H, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto dkv_kernel = dense_attn_bwd_dkv_kernel;
@@ -402,426 +423,650 @@ cudaError_t launch_dense_attn_bwd(const void* q, const void* k, const void* v, c
   err = allow_smem(dkv_kernel, smem_dkv);
   if (err != cudaSuccess) return err;
   dkv_kernel<<<dim3((N + CB_BKV - 1) / CB_BKV, nh, B), CA_THREADS, smem_dkv, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
-      (const float*)delta, (float*)dk, (float*)dv, M, N, H, hd, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float2*)stats, (float*)dk, (float*)dv, M, M_pad, N, H, hd, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Backward (K3b) on the tensor cores, for bfloat16 inputs and head dims 32,
-// 64, 128 and 256: the same two passes, with every product a 16 x 16 x 16
-// bfloat16 warp MMA (WMMA, float32 accumulation) over tiles in shared
-// memory. A block owns 32 rows (queries in the dq pass, keys in the dkv
-// pass) and streams tiles of 64 rows of the other side; S and dP land in
-// shared memory as float32, eight threads per row turn them into P and dS,
-// and P and dS are rounded to bfloat16 for the next products, as the TPU
-// kernel rounds them to the input dtype (`_bwd_kernel`).
-namespace wm = nvcuda::wmma;
-constexpr int TB_R = 32;        // rows a block owns
-constexpr int TB_T = 64;        // rows of a streamed tile
-constexpr int TB_THREADS = 256; // 8 warps
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, wm::row_major>;
-using FragBc = wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::col_major>;
-using FragBr = wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+// bfloat16 on the H100's warpgroup tensor cores: forward (K3) and the two
+// passes of the backward (K3b), head dims 32, 64, 128 and 256.
+//
+// What bounds them: arithmetic (see the head of the file), so the products
+// have to run as `wgmma`, the only instruction that reaches the card's
+// tensor-core rate, and nothing else may stand in their way:
+//
+// * Loads are asynchronous. The tiles a block streams go through a ring of
+//   NST stages in shared memory. One elected thread asks the TMA unit for a
+//   tile (a tensor map over (H, rows, B) with a box of at most 64 columns of
+//   one head, so a box row is 128 bytes, 64 at head dim 32, and the hardware
+//   applies the matching 128- or 64-byte swizzle that `wgmma` reads without
+//   bank conflicts). The bytes complete on the stage's `full` mbarrier; the
+//   warps give the stage back on its `empty` mbarrier, and the elected
+//   thread refills it NST - 1 tiles ahead of the products. There is no
+//   `__syncthreads()` after the barriers are set up. Rows past the end of a
+//   tensor arrive as zeros, so ragged M and N need no clamped re-reads.
+//   A `cp.async` ring would have cost every thread address arithmetic and a
+//   hand-written swizzle for the same bytes; the tensor maps cost three or
+//   four `cuTensorMapEncodeTiled` calls on the host per launch (a few
+//   microseconds) and are passed as `__grid_constant__` parameters.
+//   There is no producer warp: with a third warpgroup in the block ptxas
+//   gave the consumers at most 200 registers whatever `setmaxnreg` asked for
+//   (measured: the head-dim-256 forward and the dkv pass spilled their
+//   accumulators), while two warpgroups alone get 255 each; asking for a tile
+//   is a handful of instructions of one thread.
+// * Every intermediate stays in registers. A warpgroup (4 warps) owns 64
+//   rows. S = Q K^T comes out of `wgmma` in the accumulator layout
+//   (hopper.cuh); the row maximum and sum are two shuffles inside a quad of
+//   lanes; exp2 with sm_scale * log2(e) folded in; the unnormalised P,
+//   rounded to bfloat16 as the TPU kernel rounds it, is already in the
+//   layout of a register A operand, and V (or K, Q, dO in the backward) is
+//   the shared-memory B operand as it lies, rows of keys (MN-major, the
+//   descriptor's transpose bit). O, dQ, dK and dV are float32 accumulators
+//   in registers for the whole sweep. While one warpgroup of a block is in
+//   its softmax the other's products keep the tensor cores busy.
+// * Tiles: a block has two warpgroups (128 query rows in the forward and the
+//   dq pass, which halves the times K and V are read from L2 against 64-row
+//   blocks), one in the dq pass at head dim 256; key tiles are 128 wide up
+//   to head dim 128 in the forward and 64 elsewhere, which is what the 227 KB
+//   of shared memory and 255 registers a thread allow (sizes at each kernel).
+//
+// The backward takes the forward's saved output and logsumexp, so it is 7
+// products a (query, key) pair where the kernels it replaces did 9: a small
+// row kernel writes (lse * log2(e), delta = rowsum(dO * O)) pairs; the dq
+// pass owns query rows and does S, dP = dO V^T, dQ += dS K in one sweep over
+// the keys; the dkv pass owns key rows and streams Q and dO tiles with their
+// pairs: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q. Each output
+// row is written by one block: no atomics, the same bits on every launch.
+using namespace hop;
 
-// rows [r0, r0 + rows) of one head's (HD-wide) slice of a (.., H) matrix into
-// shared memory [rows][HD], 16 bytes per thread; rows past n_valid repeat the last
-template <int HD>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
-                                          int rows, int n_valid, int H, int hoff) {
-  constexpr int V = HD / 8;
-  for (int e = threadIdx.x; e < rows * V; e += TB_THREADS) {
-    const int r = e / V, c = (e % V) * 8;
-    const int n = min(r0 + r, n_valid - 1);
-    *reinterpret_cast<uint4*>(dst + r * HD + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)n * H + hoff + c);
-  }
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// One head's columns arrive in boxes of at most 64 columns: a box is
+// [rows][C] bfloat16 with rows RB bytes apart, swizzled over RB bytes.
+template <int HD> struct Box {
+  static constexpr int C = HD < 64 ? HD : 64;
+  static constexpr int RB = C * 2;
+  static constexpr int NB = HD / C;
+  static constexpr int KSTEPS = C / 16;
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;
+};
+
+// descriptor of a K-major operand (the 16 reduced columns lie along a box row)
+template <int HD> __device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return mma_desc(addr, 16, 8 * Box<HD>::RB, Box<HD>::LAYOUT);
+}
+// descriptor of an MN-major B operand (16 reduced rows of a box, C columns out)
+template <int HD> __device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t box_bytes) {
+  return mma_desc(addr, box_bytes, 8 * Box<HD>::RB, Box<HD>::LAYOUT);
 }
 
-// c = A B^T for 16 rows of A and 16 rows of B, both [.][HD] row-major tiles
-template <int HD>
-__device__ __forceinline__ void mma_abt(FragC& c, const __nv_bfloat16* A, const __nv_bfloat16* B) {
-  wm::fill_fragment(c, 0.0f);
+// d = A B^T over the head dim: A = 64 rows at `sa` of boxes `a_box` bytes
+// apart, B = the N rows (d has N / 2 registers) at `sb` likewise
+template <int HD, int NREG>
+__device__ __forceinline__ void mma_abt(float (&d)[NREG], uint32_t sa, uint32_t a_box, uint32_t sb,
+                                        uint32_t b_box) {
+  using X = Box<HD>;
 #pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    FragA a;
-    FragBc b;
-    wm::load_matrix_sync(a, A + kk, HD);
-    wm::load_matrix_sync(b, B + kk, HD);
-    wm::mma_sync(c, a, b, c);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int box = kk / X::KSTEPS, off = (kk % X::KSTEPS) * 32;
+    wgmma_ss(d, desc_k<HD>(sa + box * a_box + off), desc_k<HD>(sb + box * b_box + off), kk > 0);
   }
 }
 
-// c += A B for a 16 x TB_T slice of A ([.][TB_T]) and a TB_T x 16 slice of B ([.][HD])
-template <int HD>
-__device__ __forceinline__ void mma_ab(FragC& c, const __nv_bfloat16* A, const __nv_bfloat16* B) {
+// acc[i] += A B[:, box i] for NBX boxes of B: A = 64 x T in registers (T / 4
+// of them), B = T rows at `sb`, boxes `b_box` bytes apart
+template <int HD, int NBX, int NA>
+__device__ __forceinline__ void mma_ab(float (&acc)[NBX][Box<HD>::C / 2], const uint32_t (&a)[NA],
+                                       uint32_t sb, uint32_t b_box) {
+  using X = Box<HD>;
 #pragma unroll
-  for (int kk = 0; kk < TB_T; kk += 16) {
-    FragA a;
-    FragBr b;
-    wm::load_matrix_sync(a, A + kk, TB_T);
-    wm::load_matrix_sync(b, B + kk * HD, HD);
-    wm::mma_sync(c, a, b, c);
+  for (int kk = 0; kk < NA / 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < NBX; ++i)
+      wgmma_rs(acc[i], &a[4 * kk], desc_mn<HD>(sb + i * b_box + kk * 16 * X::RB, b_box), 1);
   }
 }
 
+// all NB boxes of a [rows][HD] tile: rows `row0 ..` of head `h`, sample `b`
 template <int HD>
-constexpr size_t tc_dq_smem() {
-  return (size_t)2 * TB_R * HD * 2 + 2 * TB_T * HD * 2 + 2 * TB_R * TB_T * 4 + TB_R * TB_T * 2;
+__device__ __forceinline__ void load_tile(uint32_t dst, int rows, const CUtensorMap* map,
+                                          uint32_t bar, int h, int row0, int b) {
+  using X = Box<HD>;
+#pragma unroll
+  for (int x = 0; x < X::NB; ++x)
+    tma_load_3d(dst + x * rows * X::RB, map, bar, h * HD + x * X::C, row0, b);
 }
-template <int HD>
-constexpr size_t tc_dkv_smem() {
-  return (size_t)2 * TB_R * HD * 2 + 2 * TB_T * HD * 2 + 2 * TB_R * TB_T * 4 +
-         2 * TB_R * TB_T * 2 + 2 * TB_T * 4;
+
+// The ring's barriers: `first`, on which the tiles a block owns arrive, then
+// NST `full` and NST `empty` ones. One thread sets them up before the
+// block's only `__syncthreads()`.
+template <int NST> struct Ring {
+  uint32_t first, full, empty;
+  __device__ __forceinline__ explicit Ring(uint32_t at)
+      : first(at), full(at + 8), empty(at + 8 + 8 * NST) {}
+  __device__ __forceinline__ void init(int warps) const {
+    mbar_init(first, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, warps);
+    }
+    mbar_init_fence();
+  }
+  static constexpr int BYTES = 8 * (1 + 2 * NST);
+};
+
+// the first 1024-byte boundary of the dynamic shared memory: the swizzle is a
+// function of the address, and the tiles start on its period
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
+// 2^x in one special-function instruction (exp2f wraps range handling around
+// it); 2^-inf = 0, results below the normal range flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
+  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+}
+
+// rows [row, row + 8] x this thread's columns of NBX boxes of accumulators,
+// times `mul[0]` / `mul[1]`, as bfloat16 into dst (.., H) at column `col0`
+template <int HD, int NBX>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[NBX][Box<HD>::C / 2],
+                                           const float (&mul)[2], int row, int n_rows, int H,
+                                           int col0, int c) {
+  using X = Box<HD>;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= n_rows) continue;
+    __nv_bfloat16* p = dst + (size_t)(row + 8 * r) * H + col0 + 2 * c;
+#pragma unroll
+    for (int i = 0; i < NBX; ++i) {
+#pragma unroll
+      for (int j = 0; j < X::C / 8; ++j)
+        *reinterpret_cast<uint32_t*>(p + i * X::C + 8 * j) =
+            pack_bf16(acc[i][4 * j + 2 * r] * mul[r], acc[i][4 * j + 2 * r + 1] * mul[r]);
+    }
+  }
+}
+
+// ---- forward ----
+// Shared memory: Q [NB][64 NWG][RB], then NST stages of K and V
+// [NB][KT][RB] each, then the barriers. Head dim 256: 64 + 2 x 64 KB with
+// KT = 64; head dim 128: 32 + 2 x 64 KB with KT = 128.
+template <int HD> struct FwdCfg {
+  static constexpr int NWG = 2;
+  static constexpr int KT = HD == 256 ? 64 : 128;
+  static constexpr int NST = HD <= 64 ? 4 : 2;
+  static constexpr int ROWS = 64 * NWG;
+  static constexpr int Q_BYTES = ROWS * HD * 2;
+  static constexpr int KV_BYTES = KT * HD * 2;
+  static constexpr int THREADS = NWG * 128;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + NST * 2 * KV_BYTES + Ring<NST>::BYTES;
+};
+
 template <int HD>
-__global__ void __launch_bounds__(TB_THREADS)
-    dense_attn_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                const __nv_bfloat16* __restrict__ dout,
-                                __nv_bfloat16* __restrict__ dq, float* __restrict__ lse_out,
-                                float* __restrict__ delta_out, int M, int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [R][HD]
-  __nv_bfloat16* Os = Qs + TB_R * HD;                              // [R][HD] dO
-  __nv_bfloat16* Ks = Os + TB_R * HD;                              // [T][HD]
-  __nv_bfloat16* Vs = Ks + TB_T * HD;                              // [T][HD]
-  float* Ss = reinterpret_cast<float*>(Vs + TB_T * HD);            // [R][T] S
-  float* Ps = Ss + TB_R * TB_T;                                    // [R][T] dP
-  __nv_bfloat16* DS = reinterpret_cast<__nv_bfloat16*>(Ps + TB_R * TB_T);  // [R][T] dS
+__global__ void __launch_bounds__(FwdCfg<HD>::THREADS, 1)
+    dense_attn_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse_out, int M, int N,
+                         int H, float scale) {
+  using X = Box<HD>;
+  using Cfg = FwdCfg<HD>;
+  constexpr int KT = Cfg::KT, NST = Cfg::NST, ROWS = Cfg::ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = smem_u32(align_1024(smem_raw)), sKV = sQ + Cfg::Q_BYTES;
+  const Ring<NST> ring(sKV + NST * 2 * Cfg::KV_BYTES);
 
-  const int t = threadIdx.x, warp = t / 32;
-  const int m0 = blockIdx.x * TB_R;
-  const int h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
-  const int hoff = h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * N * H;
-  const __nv_bfloat16* vb = v + (size_t)b * N * H;
-  copy_tile<HD>(Qs, q + (size_t)b * M * H, m0, TB_R, M, H, hoff);
-  copy_tile<HD>(Os, dout + (size_t)b * M * H, m0, TB_R, M, H, hoff);
-  const int fr = warp / 4, fc = warp % 4;     // this warp's 16 x 16 block of S and dP
-  const int row = t / 8, c0 = (t % 8) * 8;    // this thread's 8 entries of a row
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int m0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
+  const int ntiles = (N + KT - 1) / KT;
+  if (t == 0) ring.init(4 * Cfg::NWG);
+  __syncthreads();
 
-  // S = Q K^T and dP = dO V^T for the key tile at n0, into Ss and Ps
-  auto scores = [&](int n0) {
-    __syncthreads();  // the previous tile's K, S, dP and dS are consumed
-    copy_tile<HD>(Ks, kb, n0, TB_T, N, H, hoff);
-    copy_tile<HD>(Vs, vb, n0, TB_T, N, H, hoff);
-    __syncthreads();
-    FragC c;
-    mma_abt<HD>(c, Qs + fr * 16 * HD, Ks + fc * 16 * HD);
-    wm::store_matrix_sync(Ss + fr * 16 * TB_T + fc * 16, c, TB_T, wm::mem_row_major);
-    mma_abt<HD>(c, Os + fr * 16 * HD, Vs + fc * 16 * HD);
-    wm::store_matrix_sync(Ps + fr * 16 * TB_T + fc * 16, c, TB_T, wm::mem_row_major);
-    __syncthreads();
+  // tile `it` of K and V into its stage
+  auto fill = [&](int it) {
+    const int s = it % NST;
+    const uint32_t sK = sKV + s * 2 * Cfg::KV_BYTES, bar = ring.full + 8 * s;
+    mbar_arrive_expect_tx(bar, 2 * Cfg::KV_BYTES);
+    load_tile<HD>(sK, KT, &map_k, bar, h, it * KT, b);
+    load_tile<HD>(sK + Cfg::KV_BYTES, KT, &map_v, bar, h, it * KT, b);
   };
-
-  // sweep 1: logsumexp and D = sum_j p_j dp_j of each row
-  float m_run = -INFINITY, l_run = 0.0f, d_run = 0.0f;
-  for (int n0 = 0; n0 < N; n0 += TB_T) {
-    scores(n0);
-    float s[8], tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j] = (n0 + c0 + j < N) ? Ss[row * TB_T + c0 + j] * scale : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    for (int off = 4; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xFFFFFFFFu, tmax, off));
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = expf(m_run - m_new);
-    float psum = 0.0f, pd = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      pd = fmaf(p, Ps[row * TB_T + c0 + j], pd);
-    }
-    for (int off = 4; off > 0; off >>= 1) {
-      psum += __shfl_xor_sync(0xFFFFFFFFu, psum, off);
-      pd += __shfl_xor_sync(0xFFFFFFFFu, pd, off);
-    }
-    l_run = l_run * corr + psum;
-    d_run = d_run * corr + pd;
-    m_run = m_new;
-  }
-  const float lse = m_run + logf(l_run);
-  const float delta = d_run / l_run;
-  if (t % 8 == 0 && m0 + row < M) {
-    lse_out[((size_t)b * nh + h) * M + m0 + row] = lse;
-    delta_out[((size_t)b * nh + h) * M + m0 + row] = delta;
+  if (t == 0) {
+    mbar_arrive_expect_tx(ring.first, Cfg::Q_BYTES);
+    load_tile<HD>(sQ, ROWS, &map_q, ring.first, h, m0, b);
+    for (int it = 0; it < NST && it < ntiles; ++it) fill(it);
   }
 
-  // sweep 2: dQ = dS K, accumulated in this warp's fragments of the R x HD dQ
-  constexpr int NFR = (TB_R / 16) * (HD / 16);
-  constexpr int NF = (NFR + 7) / 8;
-  FragC acc[NF];
+  // warpgroup `wg` owns query rows m0 + 64 wg ..; this thread rows `row` and
+  // `row + 8` of them
+  const int wg = warp / 4, g = lane / 4, c = lane % 4;
+  const int row = m0 + 64 * wg + 16 * (warp % 4) + g;
+  const uint32_t sQw = sQ + 64 * wg * X::RB;
+  const float scale_log2 = scale * LOG2E;
+  float o[X::NB][X::C / 2];
 #pragma unroll
-  for (int i = 0; i < NF; ++i) wm::fill_fragment(acc[i], 0.0f);
-  for (int n0 = 0; n0 < N; n0 += TB_T) {
-    scores(n0);
+  for (int i = 0; i < X::NB; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + j;
-      const float p = (n0 + col < N) ? expf(Ss[row * TB_T + col] * scale - lse) : 0.0f;
-      DS[row * TB_T + col] = __float2bfloat16_rn(p * (Ps[row * TB_T + col] - delta) * scale);
+    for (int j = 0; j < X::C / 2; ++j) o[i][j] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+
+  mbar_wait(ring.first, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % NST;
+    const uint32_t sK = sKV + s * 2 * Cfg::KV_BYTES, sV = sK + Cfg::KV_BYTES;
+    mbar_wait(ring.full + 8 * s, (it / NST) & 1);
+
+    float sc[KT / 2];
+    wgmma_fence();
+    mma_abt<HD>(sc, sQw, ROWS * X::RB, sK, KT * X::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+
+    // The softmax costs as many instructions as the products cost tensor-core
+    // cycles up to head dim 64, so it is kept to a max, one multiply-add and
+    // one exponential an entry: the running maximum m is of the raw logits
+    // (the scale is positive) and P = 2^(s c - m c) with c = scale log2(e).
+    // Keys past N (zero rows of the tile) are masked.
+    const int n0 = it * KT;
+    if (n0 + KT > N) {
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i)
+        if (n0 + 8 * (i / 4) + 2 * c + (i & 1) >= N) sc[i] = -INFINITY;
     }
-    __syncthreads();
+    float m_new[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      const int f = warp + 8 * i;
-      if (f < NFR) {
-        const int fi = f / (HD / 16), fj = f % (HD / 16);
-        mma_ab<HD>(acc[i], DS + fi * 16 * TB_T, Ks + fj * 16);
-      }
+    for (int i = 0; i < KT / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sc[i]);
+    float corr[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = quad_max(m_new[r]);
+      corr[r] = ex2((m_run[r] - m_new[r]) * scale_log2);
+      mc[r] = m_new[r] * scale_log2;
+      m_run[r] = m_new[r];
+      l_run[r] *= corr[r];  // this thread's share of the row sum; the quad adds up at the end
+    }
+    uint32_t p[KT / 4];
+#pragma unroll
+    for (int i = 0; i < KT / 4; ++i) {
+      const float p0 = ex2(fmaf(sc[2 * i], scale_log2, -mc[i & 1]));
+      const float p1 = ex2(fmaf(sc[2 * i + 1], scale_log2, -mc[i & 1]));
+      l_run[i & 1] += p0 + p1;
+      p[i] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int i = 0; i < X::NB; ++i)
+#pragma unroll
+      for (int j = 0; j < X::C / 2; ++j) o[i][j] *= corr[(j >> 1) & 1];
+
+    wgmma_fence();
+    mma_ab<HD, X::NB>(o, p, sV, KT * X::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < X::NB; ++i) pin(o[i]);
+    pin(p);
+    if (lane == 0) mbar_arrive(ring.empty + 8 * s);
+    if (t == 0 && it + NST < ntiles) {
+      mbar_wait(ring.empty + 8 * s, (it / NST) & 1);
+      fill(it + NST);
     }
   }
-  __syncthreads();
-  float* St = reinterpret_cast<float*>(Ks);  // [R][HD] staging over the K/V tiles
+
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < NF; ++i) {
-    const int f = warp + 8 * i;
-    if (f < NFR) {
-      const int fi = f / (HD / 16), fj = f % (HD / 16);
-      wm::store_matrix_sync(St + fi * 16 * HD + fj * 16, acc[i], HD, wm::mem_row_major);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    inv[r] = 1.0f / l;
+    if (lse_out != nullptr && c == 0 && row + 8 * r < M)
+      lse_out[((size_t)b * nh + h) * M + row + 8 * r] =
+          (m_run[r] * scale_log2 + log2f(l)) * LN2;
   }
-  __syncthreads();
-  for (int e = t; e < TB_R * HD; e += TB_THREADS) {
-    const int r = e / HD, c = e % HD;
-    if (m0 + r < M) dq[((size_t)b * M + m0 + r) * H + hoff + c] = __float2bfloat16_rn(St[e]);
-  }
+  store_rows<HD, X::NB>(out + (size_t)b * M * H, o, inv, row, M, H, h * HD, c);
+}
+
+// tensor map over a contiguous (B, rows, H) bfloat16 tensor, dimensions (H,
+// rows, B), with a box of `box_rows` rows of one head's first 64 (or 32) columns
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// `cuTensorMapEncodeTiled` of the libcuda that the runtime has loaded
+static EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
+  }();
+  return fn;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(TB_THREADS)
-    dense_attn_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                                 const __nv_bfloat16* __restrict__ k,
-                                 const __nv_bfloat16* __restrict__ v,
-                                 const __nv_bfloat16* __restrict__ dout,
-                                 const float* __restrict__ lse_in,
-                                 const float* __restrict__ delta_in,
-                                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                                 int M, int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [R][HD]
-  __nv_bfloat16* Vs = Ks + TB_R * HD;                              // [R][HD]
-  __nv_bfloat16* Qs = Vs + TB_R * HD;                              // [T][HD]
-  __nv_bfloat16* Os = Qs + TB_T * HD;                              // [T][HD] dO
-  float* Ss = reinterpret_cast<float*>(Os + TB_T * HD);            // [R][T] S^T
-  float* Ps = Ss + TB_R * TB_T;                                    // [R][T] dP^T
-  __nv_bfloat16* PT = reinterpret_cast<__nv_bfloat16*>(Ps + TB_R * TB_T);  // [R][T] P^T
-  __nv_bfloat16* DT = PT + TB_R * TB_T;                                   // [R][T] dS^T
-  float* Ls = reinterpret_cast<float*>(DT + TB_R * TB_T);         // [T] lse
-  float* Dl = Ls + TB_T;                                           // [T] D
-
-  const int t = threadIdx.x, warp = t / 32;
-  const int n0 = blockIdx.x * TB_R;
-  const int h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
-  const int hoff = h * HD;
-  const __nv_bfloat16* qb = q + (size_t)b * M * H;
-  const __nv_bfloat16* ob = dout + (size_t)b * M * H;
-  const float* lb = lse_in + ((size_t)b * nh + h) * M;
-  const float* db = delta_in + ((size_t)b * nh + h) * M;
-  copy_tile<HD>(Ks, k + (size_t)b * N * H, n0, TB_R, N, H, hoff);
-  copy_tile<HD>(Vs, v + (size_t)b * N * H, n0, TB_R, N, H, hoff);
-  const int fr = warp / 4, fc = warp % 4;
-  const int row = t / 8, c0 = (t % 8) * 8;
-
-  // fragments of dV (f < NFR / 2) and dK (the rest), each R x HD
-  constexpr int NFR = 2 * (TB_R / 16) * (HD / 16);
-  constexpr int NF = (NFR + 7) / 8;
-  FragC acc[NF];
-#pragma unroll
-  for (int i = 0; i < NF; ++i) wm::fill_fragment(acc[i], 0.0f);
-
-  for (int m0 = 0; m0 < M; m0 += TB_T) {
-    __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-    copy_tile<HD>(Qs, qb, m0, TB_T, M, H, hoff);
-    copy_tile<HD>(Os, ob, m0, TB_T, M, H, hoff);
-    if (t < TB_T) {
-      const int m = min(m0 + t, M - 1);
-      Ls[t] = lb[m];
-      Dl[t] = db[m];
-    }
-    __syncthreads();
-    FragC c;
-    mma_abt<HD>(c, Ks + fr * 16 * HD, Qs + fc * 16 * HD);
-    wm::store_matrix_sync(Ss + fr * 16 * TB_T + fc * 16, c, TB_T, wm::mem_row_major);
-    mma_abt<HD>(c, Vs + fr * 16 * HD, Os + fc * 16 * HD);
-    wm::store_matrix_sync(Ps + fr * 16 * TB_T + fc * 16, c, TB_T, wm::mem_row_major);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + j;
-      const float p = (m0 + col < M) ? expf(Ss[row * TB_T + col] * scale - Ls[col]) : 0.0f;
-      PT[row * TB_T + col] = __float2bfloat16_rn(p);
-      DT[row * TB_T + col] = __float2bfloat16_rn(p * (Ps[row * TB_T + col] - Dl[col]) * scale);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      const int f = warp + 8 * i;
-      if (f < NFR) {
-        const bool is_dk = f >= NFR / 2;
-        const int rem = is_dk ? f - NFR / 2 : f;
-        const int fi = rem / (HD / 16), fj = rem % (HD / 16);
-        mma_ab<HD>(acc[i], (is_dk ? DT : PT) + fi * 16 * TB_T, (is_dk ? Qs : Os) + fj * 16);
-      }
-    }
-  }
-  __syncthreads();
-  float* St = reinterpret_cast<float*>(Qs);  // [2][R][HD] staging over the Q/dO tiles
-#pragma unroll
-  for (int i = 0; i < NF; ++i) {
-    const int f = warp + 8 * i;
-    if (f < NFR) {
-      const bool is_dk = f >= NFR / 2;
-      const int rem = is_dk ? f - NFR / 2 : f;
-      const int fi = rem / (HD / 16), fj = rem % (HD / 16);
-      wm::store_matrix_sync(St + (is_dk ? TB_R * HD : 0) + fi * 16 * HD + fj * 16, acc[i], HD,
-                            wm::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < TB_R * HD; e += TB_THREADS) {
-    const int r = e / HD, c = e % HD;
-    if (n0 + r < N) {
-      const size_t g = ((size_t)b * N + n0 + r) * H + hoff + c;
-      dv[g] = __float2bfloat16_rn(St[e]);
-      dk[g] = __float2bfloat16_rn(St[TB_R * HD + e]);
-    }
-  }
+static bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)rows * H * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)Box<HD>::C, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Box<HD>::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 template <int HD>
-cudaError_t launch_dense_attn_bwd_tc(const void* q, const void* k, const void* v,
-                                     const void* dout, void* dq, void* dk, void* dv, void* lse,
-                                     void* delta, int B, int M, int N, int H, int nh, float scale,
-                                     cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  auto dq_kernel = dense_attn_bwd_dq_tc_kernel<HD>;
-  cudaError_t err = allow_smem(dq_kernel, tc_dq_smem<HD>());
+cudaError_t launch_dense_attn_wg(const void* q, const void* k, const void* v, void* out, void* lse,
+                                 int B, int M, int N, int H, int nh, float scale,
+                                 cudaStream_t stream) {
+  using Cfg = FwdCfg<HD>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map<HD>(&mq, q, B, M, H, Cfg::ROWS) || !make_map<HD>(&mk, k, B, N, H, Cfg::KT) ||
+      !make_map<HD>(&mv, v, B, N, H, Cfg::KT))
+    return cudaErrorInvalidValue;
+  auto kernel = dense_attn_wg_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, Cfg::SMEM);
   if (err != cudaSuccess) return err;
-  dq_kernel<<<dim3((M + TB_R - 1) / TB_R, nh, B), TB_THREADS, tc_dq_smem<HD>(), stream>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, (bf*)dq, (float*)lse,
-      (float*)delta, M, N, H, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto dkv_kernel = dense_attn_bwd_dkv_tc_kernel<HD>;
-  err = allow_smem(dkv_kernel, tc_dkv_smem<HD>());
-  if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3((N + TB_R - 1) / TB_R, nh, B), TB_THREADS, tc_dkv_smem<HD>(), stream>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, (const float*)lse,
-      (const float*)delta, (bf*)dk, (bf*)dv, M, N, H, scale);
+  kernel<<<dim3((M + Cfg::ROWS - 1) / Cfg::ROWS, nh, B), Cfg::THREADS, Cfg::SMEM, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, (float*)lse, M, N, H, scale);
   return cudaGetLastError();
 }
 
-// Forward (K3) on the tensor cores, for bfloat16 at head dims 32-256: a
-// block owns 32 query rows and streams key tiles of 64. S = Q K^T comes from
-// WMMA into shared memory; eight threads per row keep the online max and
-// sum and write the unnormalised P, rounded to bfloat16 as the TPU kernel
-// rounds it before P V; P V is a WMMA product whose tile the same threads
-// fold into their float32 rows of O (rescaled by the running max).
-template <int HD>
-constexpr size_t tc_fwd_smem() {
-  return (size_t)TB_R * HD * 2 + 2 * TB_T * HD * 2 + TB_R * TB_T * 4 + TB_R * TB_T * 2 +
-         TB_R * HD * 4;
-}
+// ---- backward, dq pass ----
+// A block owns 64 NWG query rows: Q and dO once, then the ring of K and V
+// tiles of KT keys. Head dim 256: one warpgroup (dQ 128, S and dP 32 each,
+// dS 16 registers a thread), 2 x 32 KB + 2 x 64 KB; head dim 128: two
+// warpgroups, 2 x 32 KB + 2 x 32 KB.
+template <int HD> struct DqCfg {
+  static constexpr int NWG = HD == 256 ? 1 : 2;
+  static constexpr int KT = 64;
+  static constexpr int NST = HD <= 64 ? 4 : 2;
+  static constexpr int ROWS = 64 * NWG;
+  static constexpr int Q_BYTES = ROWS * HD * 2;
+  static constexpr int KV_BYTES = KT * HD * 2;
+  static constexpr int THREADS = NWG * 128;
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + NST * 2 * KV_BYTES + Ring<NST>::BYTES;
+};
 
 template <int HD>
-__global__ void __launch_bounds__(TB_THREADS)
-    dense_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                         int M, int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [R][HD]
-  __nv_bfloat16* Ks = Qs + TB_R * HD;                              // [T][HD]
-  __nv_bfloat16* Vs = Ks + TB_T * HD;                              // [T][HD]
-  float* Ss = reinterpret_cast<float*>(Vs + TB_T * HD);            // [R][T] S
-  __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(Ss + TB_R * TB_T);  // [R][T] P
-  float* PV = reinterpret_cast<float*>(Pb + TB_R * TB_T);          // [R][HD] this tile's P V
+__global__ void __launch_bounds__(DqCfg<HD>::THREADS, 1)
+    dense_attn_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const float2* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
+                                int M, int M_pad, int N, int H, float scale) {
+  using X = Box<HD>;
+  using Cfg = DqCfg<HD>;
+  constexpr int KT = Cfg::KT, NST = Cfg::NST, ROWS = Cfg::ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = smem_u32(align_1024(smem_raw)), sO = sQ + Cfg::Q_BYTES;
+  const uint32_t sKV = sO + Cfg::Q_BYTES;
+  const Ring<NST> ring(sKV + NST * 2 * Cfg::KV_BYTES);
 
-  const int t = threadIdx.x, warp = t / 32;
-  const int m0 = blockIdx.x * TB_R;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hoff = h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * N * H;
-  const __nv_bfloat16* vb = v + (size_t)b * N * H;
-  copy_tile<HD>(Qs, q + (size_t)b * M * H, m0, TB_R, M, H, hoff);
-  const int fr = warp / 4, fc = warp % 4;
-  const int row = t / 8, sub = t % 8;  // this thread: row `row`, columns sub + 8 j
-  constexpr int NO = HD / 8;
-  constexpr int NFR = (TB_R / 16) * (HD / 16);
-  constexpr int NF = (NFR + 7) / 8;
-  float o[NO];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) o[j] = 0.0f;
-  float m_run = -INFINITY, l_run = 0.0f;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int m0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
+  const int ntiles = (N + KT - 1) / KT;
+  if (t == 0) ring.init(4 * Cfg::NWG);
+  __syncthreads();
 
-  for (int n0 = 0; n0 < N; n0 += TB_T) {
-    __syncthreads();  // the previous tile's K, V, P and P V are consumed
-    copy_tile<HD>(Ks, kb, n0, TB_T, N, H, hoff);
-    copy_tile<HD>(Vs, vb, n0, TB_T, N, H, hoff);
-    __syncthreads();
-    FragC c;
-    mma_abt<HD>(c, Qs + fr * 16 * HD, Ks + fc * 16 * HD);
-    wm::store_matrix_sync(Ss + fr * 16 * TB_T + fc * 16, c, TB_T, wm::mem_row_major);
-    __syncthreads();
-    float s[8], tmax = -INFINITY;
+  auto fill = [&](int it) {
+    const int s = it % NST;
+    const uint32_t sK = sKV + s * 2 * Cfg::KV_BYTES, bar = ring.full + 8 * s;
+    mbar_arrive_expect_tx(bar, 2 * Cfg::KV_BYTES);
+    load_tile<HD>(sK, KT, &map_k, bar, h, it * KT, b);
+    load_tile<HD>(sK + Cfg::KV_BYTES, KT, &map_v, bar, h, it * KT, b);
+  };
+  if (t == 0) {
+    mbar_arrive_expect_tx(ring.first, 2 * Cfg::Q_BYTES);
+    load_tile<HD>(sQ, ROWS, &map_q, ring.first, h, m0, b);
+    load_tile<HD>(sO, ROWS, &map_do, ring.first, h, m0, b);
+    for (int it = 0; it < NST && it < ntiles; ++it) fill(it);
+  }
+
+  const int wg = warp / 4, g = lane / 4, c = lane % 4;
+  const int row = m0 + 64 * wg + 16 * (warp % 4) + g;
+  const uint32_t sQw = sQ + 64 * wg * X::RB, sOw = sO + 64 * wg * X::RB;
+  const float scale_log2 = scale * LOG2E;
+  // (lse in units of log 2, delta) of rows `row` and `row + 8`; the rows past
+  // M (zero rows of Q and dO) hold (+inf, 0) and get P = 0
+  float2 st[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = sub * 8 + j;
-      s[j] = (n0 + col < N) ? Ss[row * TB_T + col] * scale : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    for (int off = 4; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xFFFFFFFFu, tmax, off));
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = expf(m_run - m_new);
-    float psum = 0.0f;
+  for (int r = 0; r < 2; ++r) st[r] = stats[((size_t)b * nh + h) * M_pad + row + 8 * r];
+  float acc[X::NB][X::C / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      Pb[row * TB_T + sub * 8 + j] = __float2bfloat16_rn(p);
-    }
-    for (int off = 4; off > 0; off >>= 1) psum += __shfl_xor_sync(0xFFFFFFFFu, psum, off);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    __syncthreads();
+  for (int i = 0; i < X::NB; ++i)
 #pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      const int f = warp + 8 * i;
-      if (f < NFR) {
-        const int fi = f / (HD / 16), fj = f % (HD / 16);
-        FragC acc;
-        wm::fill_fragment(acc, 0.0f);
-        mma_ab<HD>(acc, Pb + fi * 16 * TB_T, Vs + fj * 16);
-        wm::store_matrix_sync(PV + fi * 16 * HD + fj * 16, acc, HD, wm::mem_row_major);
+    for (int j = 0; j < X::C / 2; ++j) acc[i][j] = 0.0f;
+
+  mbar_wait(ring.first, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % NST;
+    const uint32_t sK = sKV + s * 2 * Cfg::KV_BYTES, sV = sK + Cfg::KV_BYTES;
+    mbar_wait(ring.full + 8 * s, (it / NST) & 1);
+
+    float sc[KT / 2], dp[KT / 2];
+    wgmma_fence();
+    mma_abt<HD>(sc, sQw, ROWS * X::RB, sK, KT * X::RB);
+    mma_abt<HD>(dp, sOw, ROWS * X::RB, sV, KT * X::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+    pin(dp);
+
+    // dS = P (dP - delta) scale, rounded to bfloat16; keys past N give 0
+    const int n0 = it * KT;
+    const bool ragged = n0 + KT > N;
+    uint32_t ds[KT / 4];
+#pragma unroll
+    for (int i = 0; i < KT / 4; ++i) {
+      const int r = i & 1;
+      float d0 = ex2(fmaf(sc[2 * i], scale_log2, -st[r].x)) * (dp[2 * i] - st[r].y) * scale;
+      float d1 = ex2(fmaf(sc[2 * i + 1], scale_log2, -st[r].x)) * (dp[2 * i + 1] - st[r].y) * scale;
+      if (ragged) {
+        const int col = n0 + 8 * (i / 2) + 2 * c;
+        if (col >= N) d0 = 0.0f;
+        if (col + 1 >= N) d1 = 0.0f;
       }
+      ds[i] = pack_bf16(d0, d1);
     }
-    __syncthreads();
+    wgmma_fence();
+    mma_ab<HD, X::NB>(acc, ds, sK, KT * X::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < NO; ++j) o[j] = fmaf(o[j], corr, PV[row * HD + sub + 8 * j]);
+    for (int i = 0; i < X::NB; ++i) pin(acc[i]);
+    pin(ds);
+    if (lane == 0) mbar_arrive(ring.empty + 8 * s);
+    if (t == 0 && it + NST < ntiles) {
+      mbar_wait(ring.empty + 8 * s, (it / NST) & 1);
+      fill(it + NST);
+    }
   }
-  const int m = m0 + row;
-  if (m < M) {
-    const float inv = 1.0f / l_run;
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<HD, X::NB>(dq + (size_t)b * M * H, acc, one, row, M, H, h * HD, c);
+}
+
+// ---- backward, dkv pass ----
+// A block owns key rows: K and V once, then the ring of Q and dO tiles of
+// QT = 64 query rows with their (lse, delta) pairs. Up to head dim 128 its two
+// warpgroups own 64 keys each (dK and dV are 2 x 64 registers a thread at
+// head dim 128). At head dim 256 the two 64 x 256 accumulators would be 256
+// registers a thread, so both warpgroups own the same 64 keys and each half
+// the columns of dK and dV: S^T and dP^T are then computed by both (6
+// products a pair where 4 are needed) and every register array keeps its
+// size. Shared memory at head dim 256: 2 x 32 KB of K and V + 2 stages x
+// 65 KB; at 128: 2 x 32 KB + 2 x 33 KB.
+template <int HD> struct DkvCfg {
+  static constexpr int NWG = 2;
+  static constexpr bool SPLIT = HD == 256;           // the warpgroups split columns, not keys
+  static constexpr int KROWS = SPLIT ? 64 : 64 * NWG;
+  static constexpr int NBX = SPLIT ? Box<HD>::NB / NWG : Box<HD>::NB;  // boxes a warpgroup owns
+  static constexpr int QT = 64;
+  static constexpr int NST = HD <= 64 ? 4 : 2;
+  static constexpr int K_BYTES = KROWS * HD * 2;
+  static constexpr int Q_BYTES = QT * HD * 2;
+  static constexpr int ST_BYTES = QT * 8;            // the tile's (lse, delta) pairs
+  static constexpr int THREADS = NWG * 128;
+  static constexpr int STAGE = 2 * Q_BYTES + 1024;   // Q, dO, the pairs
+  static constexpr size_t SMEM = 1024 + 2 * K_BYTES + NST * STAGE + Ring<NST>::BYTES;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(DkvCfg<HD>::THREADS, 1)
+    dense_attn_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_do,
+                                 const float2* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+                                 __nv_bfloat16* __restrict__ dv, int M, int M_pad, int N, int H,
+                                 float scale) {
+  using X = Box<HD>;
+  using Cfg = DkvCfg<HD>;
+  constexpr int QT = Cfg::QT, NST = Cfg::NST, KROWS = Cfg::KROWS, NBX = Cfg::NBX;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  const uint32_t sK = smem_u32(base), sV = sK + Cfg::K_BYTES, sSt = sV + Cfg::K_BYTES;
+  const Ring<NST> ring(sSt + NST * Cfg::STAGE);
+  const unsigned char* stages = base + 2 * Cfg::K_BYTES;
+
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int n0 = blockIdx.x * KROWS, h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
+  const int ntiles = (M + QT - 1) / QT;
+  if (t == 0) ring.init(4 * Cfg::NWG);
+  __syncthreads();
+
+  // tile `it` of Q and dO and its rows' pairs (M_pad is a multiple of QT:
+  // the copy never leaves the sample's rows) into its stage
+  auto fill = [&](int it) {
+    const int s = it % NST;
+    const uint32_t sQs = sSt + s * Cfg::STAGE, bar = ring.full + 8 * s;
+    mbar_arrive_expect_tx(bar, 2 * Cfg::Q_BYTES + Cfg::ST_BYTES);
+    load_tile<HD>(sQs, QT, &map_q, bar, h, it * QT, b);
+    load_tile<HD>(sQs + Cfg::Q_BYTES, QT, &map_do, bar, h, it * QT, b);
+    bulk_load(sQs + 2 * Cfg::Q_BYTES, stats + ((size_t)b * nh + h) * M_pad + it * QT,
+              Cfg::ST_BYTES, bar);
+  };
+  if (t == 0) {
+    mbar_arrive_expect_tx(ring.first, 2 * Cfg::K_BYTES);
+    load_tile<HD>(sK, KROWS, &map_k, ring.first, h, n0, b);
+    load_tile<HD>(sV, KROWS, &map_v, ring.first, h, n0, b);
+    for (int it = 0; it < NST && it < ntiles; ++it) fill(it);
+  }
+
+  // warpgroup `wg` owns key rows `krow0 + ..` and boxes `box0 + ..` of dK and
+  // dV; this thread rows `row` and `row + 8`
+  const int wg = warp / 4, g = lane / 4, c = lane % 4;
+  const int krow0 = Cfg::SPLIT ? 0 : 64 * wg, box0 = Cfg::SPLIT ? NBX * wg : 0;
+  const int row = n0 + krow0 + 16 * (warp % 4) + g;
+  const uint32_t sKw = sK + krow0 * X::RB, sVw = sV + krow0 * X::RB;
+  const float scale_log2 = scale * LOG2E;
+  float acc_dk[NBX][X::C / 2], acc_dv[NBX][X::C / 2];
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      out[((size_t)b * M + m) * H + hoff + sub + 8 * j] = __float2bfloat16_rn(o[j] * inv);
+  for (int i = 0; i < NBX; ++i)
+#pragma unroll
+    for (int j = 0; j < X::C / 2; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.0f;
+
+  mbar_wait(ring.first, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % NST;
+    const uint32_t sQs = sSt + s * Cfg::STAGE, sOs = sQs + Cfg::Q_BYTES;
+    const float4* pairs =
+        reinterpret_cast<const float4*>(stages + s * Cfg::STAGE + 2 * Cfg::Q_BYTES);
+    mbar_wait(ring.full + 8 * s, (it / NST) & 1);
+
+    float st[QT / 2], dpt[QT / 2];  // S^T and dP^T: rows are keys, columns queries
+    wgmma_fence();
+    mma_abt<HD>(st, sKw, KROWS * X::RB, sQs, QT * X::RB);
+    mma_abt<HD>(dpt, sVw, KROWS * X::RB, sOs, QT * X::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(st);
+    pin(dpt);
+
+    // a query row past M is a zero row of Q and dO with the pair (+inf, 0): P = dS = 0
+    uint32_t pt[QT / 4], dst[QT / 4];
+#pragma unroll
+    for (int i = 0; i < QT / 4; ++i) {
+      const float4 ld = pairs[4 * (i / 2) + c];  // (lse, delta) of columns 8 (i / 2) + 2 c, + 1
+      const float p0 = ex2(fmaf(st[2 * i], scale_log2, -ld.x));
+      const float p1 = ex2(fmaf(st[2 * i + 1], scale_log2, -ld.z));
+      pt[i] = pack_bf16(p0, p1);
+      dst[i] = pack_bf16(p0 * (dpt[2 * i] - ld.y) * scale, p1 * (dpt[2 * i + 1] - ld.w) * scale);
+    }
+    wgmma_fence();
+    mma_ab<HD, NBX>(acc_dv, pt, sOs + box0 * QT * X::RB, QT * X::RB);
+    mma_ab<HD, NBX>(acc_dk, dst, sQs + box0 * QT * X::RB, QT * X::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < NBX; ++i) {
+      pin(acc_dv[i]);
+      pin(acc_dk[i]);
+    }
+    pin(pt);
+    pin(dst);
+    if (lane == 0) mbar_arrive(ring.empty + 8 * s);
+    if (t == 0 && it + NST < ntiles) {
+      mbar_wait(ring.empty + 8 * s, (it / NST) & 1);
+      fill(it + NST);
+    }
   }
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<HD, NBX>(dv + (size_t)b * N * H, acc_dv, one, row, N, H, h * HD + box0 * X::C, c);
+  store_rows<HD, NBX>(dk + (size_t)b * N * H, acc_dk, one, row, N, H, h * HD + box0 * X::C, c);
 }
 
 template <int HD>
-cudaError_t launch_dense_attn_tc(const void* q, const void* k, const void* v, void* out, int B,
-                                 int M, int N, int H, int nh, float scale, cudaStream_t stream) {
+cudaError_t launch_dense_attn_bwd_wg(const void* q, const void* k, const void* v, const void* out,
+                                     const void* dout, const void* lse, void* dq, void* dk,
+                                     void* dv, void* stats, int B, int M, int N, int H, int nh,
+                                     float scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  auto kernel = dense_attn_tc_kernel<HD>;
-  cudaError_t err = allow_smem(kernel, tc_fwd_smem<HD>());
+  using A = DqCfg<HD>;
+  using C = DkvCfg<HD>;
+  const int M_pad = stats_rows(M);
+  cudaError_t err = launch_stats<bf>(out, dout, lse, stats, LOG2E, B, M, H, nh, stream);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((M + TB_R - 1) / TB_R, nh, B), TB_THREADS, tc_fwd_smem<HD>(), stream>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (bf*)out, M, N, H, scale);
+  CUtensorMap mq, mo, mk, mv;
+  if (!make_map<HD>(&mq, q, B, M, H, A::ROWS) || !make_map<HD>(&mo, dout, B, M, H, A::ROWS) ||
+      !make_map<HD>(&mk, k, B, N, H, A::KT) || !make_map<HD>(&mv, v, B, N, H, A::KT))
+    return cudaErrorInvalidValue;
+  auto dq_kernel = dense_attn_bwd_dq_wg_kernel<HD>;
+  if ((err = allow_smem(dq_kernel, A::SMEM)) != cudaSuccess) return err;
+  dq_kernel<<<dim3((M + A::ROWS - 1) / A::ROWS, nh, B), A::THREADS, A::SMEM, stream>>>(
+      mq, mo, mk, mv, (const float2*)stats, (bf*)dq, M, M_pad, N, H, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (!make_map<HD>(&mk, k, B, N, H, C::KROWS) || !make_map<HD>(&mv, v, B, N, H, C::KROWS) ||
+      !make_map<HD>(&mq, q, B, M, H, C::QT) || !make_map<HD>(&mo, dout, B, M, H, C::QT))
+    return cudaErrorInvalidValue;
+  auto dkv_kernel = dense_attn_bwd_dkv_wg_kernel<HD>;
+  if ((err = allow_smem(dkv_kernel, C::SMEM)) != cudaSuccess) return err;
+  dkv_kernel<<<dim3((N + C::KROWS - 1) / C::KROWS, nh, B), C::THREADS, C::SMEM, stream>>>(
+      mk, mv, mq, mo, (const float2*)stats, (bf*)dk, (bf*)dv, M, M_pad, N, H, scale);
   return cudaGetLastError();
 }
 
@@ -835,7 +1080,7 @@ static bool aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-static bool tc_head_dim(int hd) { return hd == 32 || hd == 64 || hd == 128 || hd == 256; }
+static bool wg_head_dim(int hd) { return hd == 32 || hd == 64 || hd == 128 || hd == 256; }
 
 // The shapes each dtype takes: float32 head dims 32..256 in steps of 16;
 // bfloat16 head dims 32, 64, 128 or 256 on 16-byte aligned tensors.
@@ -844,43 +1089,49 @@ static bool shapes_ok(int dtype, int M, int N, int H, int nh,
   if (nh < 1 || H % nh != 0 || M < 1 || N < 1) return false;
   const int hd = H / nh;
   if (dtype == DTYPE_F32) return hd >= 32 && hd <= CA_MAX_HD && hd % 16 == 0;
-  if (dtype == DTYPE_BF16) return tc_head_dim(hd) && aligned16(ptrs);
+  if (dtype == DTYPE_BF16) return wg_head_dim(hd) && aligned16(ptrs);
   return false;
 }
 
 // q (B, M, H), k and v (B, N, H), out (B, M, H); heads are H / nh wide.
-// float32 runs the FMA kernel, bfloat16 the tensor-core kernel.
+// lse (B, nh, M) float32 receives the row logsumexp unless it is null.
+// float32 runs the FMA kernel, bfloat16 the wgmma kernel, which takes a
+// positive scale only (as the TPU kernel, which folds it into the exponent).
 extern "C" int poem_dense_cross_attention(int dtype, const void* q, const void* k, const void* v,
-                                          void* out, int B, int M, int N, int H, int nh,
+                                          void* out, void* lse, int B, int M, int N, int H, int nh,
                                           float scale, void* stream) {
   if (!shapes_ok(dtype, M, N, H, nh, {q, k, v, out})) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32) return (int)launch_dense_attn(q, k, v, out, B, M, N, H, nh, scale, s);
-#define POEM_FWD_TC(HD) launch_dense_attn_tc<HD>(q, k, v, out, B, M, N, H, nh, scale, s)
-  return (int)(hd == 32 ? POEM_FWD_TC(32) : hd == 64 ? POEM_FWD_TC(64)
-               : hd == 128 ? POEM_FWD_TC(128) : POEM_FWD_TC(256));
-#undef POEM_FWD_TC
+  if (dtype == DTYPE_F32)
+    return (int)launch_dense_attn(q, k, v, out, lse, B, M, N, H, nh, scale, s);
+  if (!(scale > 0.0f)) return (int)cudaErrorInvalidValue;  // the running max is of raw logits
+#define POEM_FWD_WG(HD) launch_dense_attn_wg<HD>(q, k, v, out, lse, B, M, N, H, nh, scale, s)
+  return (int)(hd == 32 ? POEM_FWD_WG(32) : hd == 64 ? POEM_FWD_WG(64)
+               : hd == 128 ? POEM_FWD_WG(128) : POEM_FWD_WG(256));
+#undef POEM_FWD_WG
 }
 
-// Gradients of poem_dense_cross_attention: dq (B, M, H), dk and dv (B, N, H)
-// in the input dtype; lse and delta are (B, nh, M) float32 scratch.
-// float32 runs the FMA kernels, bfloat16 the tensor-core kernels.
+// Gradients of poem_dense_cross_attention from its inputs, its output `out`
+// and logsumexp `lse` and the cotangent `dout`: dq (B, M, H), dk and dv
+// (B, N, H) in the input dtype; stats is float32 scratch for (B, nh, M rounded
+// up to a multiple of 128) pairs (lse, delta).
+// float32 runs the FMA kernels, bfloat16 the wgmma kernels.
 extern "C" int poem_dense_cross_attention_bwd(int dtype, const void* q, const void* k,
-                                              const void* v, const void* dout, void* dq,
-                                              void* dk, void* dv, void* lse, void* delta, int B,
-                                              int M, int N, int H, int nh, float scale,
-                                              void* stream) {
-  if (!shapes_ok(dtype, M, N, H, nh, {q, k, v, dout, dq, dk, dv}))
+                                              const void* v, const void* out, const void* dout,
+                                              const void* lse, void* dq, void* dk, void* dv,
+                                              void* stats, int B, int M, int N, int H, int nh,
+                                              float scale, void* stream) {
+  if (!shapes_ok(dtype, M, N, H, nh, {q, k, v, out, dout, dq, dk, dv}))
     return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return (int)launch_dense_attn_bwd(q, k, v, dout, dq, dk, dv, lse, delta, B, M, N, H, nh,
+    return (int)launch_dense_attn_bwd(q, k, v, out, dout, lse, dq, dk, dv, stats, B, M, N, H, nh,
                                       scale, s);
-#define POEM_BWD_TC(HD)                                                                         \
-  launch_dense_attn_bwd_tc<HD>(q, k, v, dout, dq, dk, dv, lse, delta, B, M, N, H, nh, scale, s)
-  return (int)(hd == 32 ? POEM_BWD_TC(32) : hd == 64 ? POEM_BWD_TC(64)
-               : hd == 128 ? POEM_BWD_TC(128) : POEM_BWD_TC(256));
-#undef POEM_BWD_TC
+#define POEM_BWD_WG(HD)                                                                        \
+  launch_dense_attn_bwd_wg<HD>(q, k, v, out, dout, lse, dq, dk, dv, stats, B, M, N, H, nh, scale, s)
+  return (int)(hd == 32 ? POEM_BWD_WG(32) : hd == 64 ? POEM_BWD_WG(64)
+               : hd == 128 ? POEM_BWD_WG(128) : POEM_BWD_WG(256));
+#undef POEM_BWD_WG
 }

@@ -39,8 +39,8 @@ _SIGNATURES = {
     "poem_kth_key_rows": [_I, _P, _P, _I, _I, _I, _P],
     "poem_kth_key_onehot": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "poem_scramble_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "poem_dense_cross_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    "poem_dense_cross_attention_bwd": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "poem_dense_cross_attention": [_I] + [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
+    "poem_dense_cross_attention_bwd": [_I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     "poem_scatter_add_rows": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "poem_grid_sample_points": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

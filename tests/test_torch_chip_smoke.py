@@ -24,18 +24,23 @@ def on_cpu(monkeypatch):
 def test_phase_kernels_rehearsal(on_cpu):
     results = {}
     chip_smoke.phase_kernels(results, B=2, M=19, D=32, K=8, N=64, V=4, wide=(48,))
-    names = {case.split("/")[0] for case in results} - {"wide"}
+    names = {case.split("/")[0] for case in results} - {"wide", "ragged"}
     assert names == {k for k, n in chip_smoke.LAUNCHES_PER_MIXED_FORWARD.items() if n} | {
         "fused_vector_attention"}
     assert set(chip_smoke.LAUNCHES_PER_FORWARD) == set(chip_smoke.LAUNCHES_PER_TRAIN_STEP) \
         == set(chip_smoke.KERNELS) and len(chip_smoke.KERNELS) == 11
+    # K3 also at one sample with a key count no tile divides, its lse held everywhere
+    dense = [c for c in results if "dense_cross_attention" in c]
+    assert sorted(dense) == ["dense_cross_attention", "ragged/dense_cross_attention/B1_N68",
+                             "wide/dense_cross_attention/D48"]
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for row in by_dtype.values():
             assert set(row) == {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by"}
+                                "bound_by"} | ({"lse_max_abs_err"} if case in dense else set())
             assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
             assert row["max_abs_err"] == 0.0  # the same plain version on both sides
+            assert row.get("lse_max_abs_err", 0.0) == 0.0
     for case in ("dense_cross_attention", "grid_sample_points_fused", "scrambled_merge_gather"):
         assert results[case]["bfloat16"]["library_ms"] is not None, case
     json.dumps(results)  # what goes into the kernels line is serialisable
@@ -44,13 +49,15 @@ def test_phase_kernels_rehearsal(on_cpu):
 def test_phase_train_kernels_rehearsal(on_cpu):
     """Phase 1b at a tiny shape: K3b, K6 (self and cross) and K7 at the main
     width and at one other, which takes the branch that holds the kernels
-    against the plain version on the same device."""
+    against the plain version on the same device; K3b from the saved output
+    and logsumexp, with and without them, also at one sample and 68 keys."""
     results = {}
     chip_smoke.phase_train_kernels(results, B=2, M=19, D=32, K=8, N=64, wide=(48,))
     cases = ["dense_cross_attention_bwd", "knn_vector_attention_trainable/self",
              "knn_vector_attention_trainable/cross", "scatter_add_rows/self",
              "scatter_add_rows/cross"]
-    assert set(results) == set(cases) | {f"wide/{c}/D48" for c in cases}
+    ragged = "ragged/dense_cross_attention_bwd/B1_N68"  # one sample, keys no tile divides
+    assert set(results) == set(cases) | {f"wide/{c}/D48" for c in cases} | {ragged}
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for dt, row in by_dtype.items():
@@ -60,8 +67,9 @@ def test_phase_train_kernels_rehearsal(on_cpu):
                 assert (row["max_abs_err_grads"] is not None) == (dt == "float32")
             else:
                 assert row["max_abs_err"] == 0.0  # the same plain version on both sides
+                assert row.get("lse_max_abs_err", 0.0) == 0.0
     # the kernels line takes the main width only
-    assert {c.split("/")[0] for c in results} - {"wide"} == {
+    assert {c.split("/")[0] for c in results} - {"wide", "ragged"} == {
         "dense_cross_attention_bwd", "knn_vector_attention_trainable", "scatter_add_rows"}
     json.dumps(results)
 

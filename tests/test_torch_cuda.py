@@ -87,16 +87,44 @@ def test_anchor_vector_attention(cuda, dtype, D):
     _close(got, want, dtype)
 
 
+# (B, M, N): rows and keys that no tile of 64 or 128 divides, one row, one sample
+RAGGED = [(2, 133, 517), (1, 1, 64), (1, 63, 100), (2, 65, 4100), (1, 799, 4100)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,M,N", RAGGED)
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
-def test_dense_cross_attention_head_dims(cuda, dtype, hd):
+def test_dense_cross_attention_head_dims(cuda, dtype, hd, B, M, N):
+    """K3's output and row logsumexp (1e-5 absolute) against the plain versions."""
     rs = np.random.RandomState(hd)
-    B, M, N, nh = 2, 133, 517, 4
+    nh, scale = 4, hd ** -0.5
     q, k, v = (_mk(rs, B, n, nh * hd).to(dtype) for n in (M, N, N))
-    want = cross_attn.dense_cross_attention(q, k, v, num_heads=nh, sm_scale=hd ** -0.5)
+    want = cross_attn.dense_cross_attention(q, k, v, num_heads=nh, sm_scale=scale)
     got = cross_attn.dense_cross_attention(q.to(cuda), k.to(cuda), v.to(cuda), num_heads=nh,
-                                           sm_scale=hd ** -0.5)
+                                           sm_scale=scale)
     _close(got, want, dtype)
+    with torch.no_grad():
+        again, lse = cross_attn.dense_cross_attention_forward(q.to(cuda), k.to(cuda), v.to(cuda),
+                                                              nh, scale, return_lse=True)
+    assert torch.equal(again, got) and lse.dtype == torch.float32
+    want_lse = cross_attn.plain_dense_cross_attention_lse(q, k, nh, scale)
+    assert float((lse.cpu() - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_cross_attention_noncontiguous_inputs(cuda, dtype):
+    """Strided views are copied by the wrappers: the same bits as from contiguous copies."""
+    rs = np.random.RandomState(3)
+    wide = [_mk(rs, 2, n, 512).to(dtype).to(cuda) for n in (70, 300, 300, 70)]
+    q, k, v, do = (t[..., ::2] for t in wide)          # every other column
+    assert not q.is_contiguous()
+    cq, ck, cv, cdo = (t.contiguous() for t in (q, k, v, do))
+    with torch.no_grad():
+        out = cross_attn.dense_cross_attention(q, k, v, 4, 0.125)
+        assert torch.equal(out, cross_attn.dense_cross_attention(cq, ck, cv, 4, 0.125))
+    for a, b in zip(cross_attn.dense_cross_attention_bwd(q, k, v, do, 4, 0.125),
+                    cross_attn.dense_cross_attention_bwd(cq, ck, cv, cdo, 4, 0.125)):
+        assert torch.equal(a, b)
 
 
 def test_dense_cross_attention_bf16_shapes_it_rejects(cuda):
@@ -112,6 +140,16 @@ def test_dense_cross_attention_bf16_shapes_it_rejects(cuda):
     k, v = (_mk(rs, 2, 300, 256).to(cuda).bfloat16() for _ in range(2))
     with pytest.raises(ValueError, match="aligned"):
         cross_attn.dense_cross_attention(q, k, v, 4, 0.125)
+    # the backward's tensor maps need the same of the cotangent and the saved output
+    q = _mk(rs, 2, 40, 256).to(cuda).bfloat16()
+    out, lse = cross_attn.dense_cross_attention_forward(q, k, v, 4, 0.125, return_lse=True)
+    odd = flat[1:].view(2, 40, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        cross_attn.dense_cross_attention_bwd(q, k, v, odd, 4, 0.125, out=out, lse=lse)
+    with pytest.raises(ValueError, match="aligned"):
+        cross_attn.dense_cross_attention_bwd(q, k, v, out, 4, 0.125, out=odd, lse=lse)
+    with pytest.raises(ValueError, match="lse"):
+        cross_attn.dense_cross_attention_bwd(q, k, v, out, 4, 0.125, out=out, lse=lse[:, :2])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -141,17 +179,28 @@ def _grads_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,M,N", RAGGED)
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
-def test_dense_cross_attention_backward_head_dims(cuda, dtype, hd):
-    """K3b against autograd through the plain version; N = 517 is no tile multiple."""
+def test_dense_cross_attention_backward_head_dims(cuda, dtype, hd, B, M, N):
+    """K3b against autograd through the plain version at shapes no tile divides:
+    from the forward's saved (out, lse), a second launch and a call without
+    the saved pair bit for bit the same."""
     rs = np.random.RandomState(hd + 1)
-    B, M, N, nh = 2, 133, 517, 4
+    nh, scale = 4, hd ** -0.5
     q, k, v, do = (_mk(rs, B, n, nh * hd).to(dtype) for n in (M, N, N, M))
-    want = cross_attn.plain_dense_cross_attention_bwd(q, k, v, do, nh, hd ** -0.5)
-    got = cross_attn.dense_cross_attention_bwd(*(t.to(cuda) for t in (q, k, v, do)), nh,
-                                               hd ** -0.5)
+    want = cross_attn.plain_dense_cross_attention_bwd(q, k, v, do, nh, scale)
+    dev = [t.to(cuda) for t in (q, k, v, do)]
+    out, lse = cross_attn.dense_cross_attention_forward(*dev[:3], nh, scale, return_lse=True)
+    before = cross_attn.dense_cross_attention_bwd.launches
+    got = cross_attn.dense_cross_attention_bwd(*dev, nh, scale, out=out, lse=lse)
+    again = cross_attn.dense_cross_attention_bwd(*dev, nh, scale, out=out, lse=lse)
+    alone = cross_attn.dense_cross_attention_bwd(*dev, nh, scale)
     torch.cuda.synchronize()
+    # the stats, dq and dkv kernels of one call count as one launch of K3b
+    assert cross_attn.dense_cross_attention_bwd.launches == before + 3
     _grads_close(got, want, dtype)
+    for a, b, c in zip(got, again, alone):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_dense_cross_attention_function_grads(cuda):
@@ -164,6 +213,40 @@ def test_dense_cross_attention_function_grads(cuda):
     want = torch.autograd.grad((cross_attn.plain_dense_cross_attention(qc, kc, vc, 4, 0.125) ** 2)
                                .sum(), (qc, kc, vc))
     _grads_close(grads, want, torch.float32)
+
+
+def test_dense_cross_attention_grads_under_autocast_in_checkpointed_blocks(cuda, monkeypatch):
+    """The training decoder under bfloat16 autocast, every block checkpointed:
+    K3 runs 6 times and K3b 6 times a step, the recompute replays the saved
+    (out, lse) pairs, and the gradients are finite and the same bits as
+    without checkpointing."""
+    from poem_v2_tpu_torch.models import decoder
+    from poem_v2_tpu_torch.models.decoder import PtEmbedDecoder
+
+    rs = np.random.RandomState(9)
+    B, M, N, D = 2, 100, 300, 128
+    args = [_mk(rs, B, M, 3, scale=0.3).to(cuda), _mk(rs, B, M, D).to(cuda),
+            _mk(rs, B, N, 3, scale=0.3).to(cuda), _mk(rs, B, N, D).to(cuda)]
+    aidx = torch.arange(8, device=cuda)
+    results = {}
+    for use_remat in (True, False):
+        if not use_remat:
+            monkeypatch.setattr(decoder, "checkpoint", lambda fn, *a, **kw: fn(*a))
+        torch.manual_seed(0)
+        dec = PtEmbedDecoder(n_blocks=3, hidden_size=D, num_heads=4, n_neighbor=8,
+                             n_neighbor_query=8, dropout=0.0).to(cuda).train()
+        k3, k3b = cross_attn.dense_cross_attention.launches, \
+            cross_attn.dense_cross_attention_bwd.launches
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            coords, _, _ = dec(*args, aidx, aidx, None)
+        grads = torch.autograd.grad((coords.float() ** 2).sum(), list(dec.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        assert cross_attn.dense_cross_attention.launches == k3 + 6
+        assert cross_attn.dense_cross_attention_bwd.launches == k3b + 6
+        results[use_remat] = grads
+    for a, b in zip(results[True], results[False]):
+        assert (a is None and b is None) or (torch.isfinite(a).all() and torch.equal(a, b))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
