@@ -15,7 +15,13 @@ non-zero:
    K1-K5 also at D = 128, 512 and 1024, the other tiers' widths (against
    the plain version on the card); K3 also at batch 1 with a key count that
    is no multiple of any tile (4100), and its row logsumexp against the plain
-   one (1e-5 absolute) in every K3 case;
+   one (1e-5 absolute) in every K3 case; K1's bound from its least work (three
+   products a row, the k / v projection once a cloud point), the TPU kernel's
+   five products a row beside it;
+1a. the attention core at neighbour counts that do not divide 32 (8, 24,
+   48) and at 1 and 65 queries, D = 256 and D = 1024 at K = 24: K1, K2, K8
+   against their plain versions on the card, K1's indices identical, and K1
+   fed with its own indices (``neighbor_idx``) bit for bit the selecting call;
 1b. the training kernels at the train path's batch-4 shapes, D = 256 and then
    D = 128, 512 and 1024 (on the card): K3b (dQ, dK, dV; 4 heads of D / 4;
    from the forward's saved output and logsumexp, which is what is timed; two
@@ -23,6 +29,9 @@ non-zero:
    batch 1 with 4100 keys), K6 (value, and in float32 all 14 input gradients;
    self and cross) and K7 (n_rows 799 and 4096, heavily duplicated indices,
    two launches bit-identical);
+1e. bf16 at the batch-4 shapes, call by call and replayed from a CUDA
+   graph: K1's selection alone, K1 (cross), K2, K8, and K7 (self, cross)
+   beside ``index_add_``;
 1c. K9, the bucketed exact-KNN attention, on the real BPS cloud (4096 points
    in 32 k-d buckets of 128) with 799 queries on a posed hand, batch 4,
    D = 256 (and once D = 1024): against its plain version on the card
@@ -59,9 +68,10 @@ non-zero:
    checked; (b) one float32 step at batch 1, card (kernels) against CPU
    (plain versions), same weights, batch and jitter draws, dropout 0:
    loss terms, every gradient per module, and the parameters after the
-   update; (c) small, medium_MANO, large and huge take 2 warm-up and 4 timed
-   steps on the same batch: finite loss and grad norm, the launches per
-   step, a loss that falls under fixed noise, step time and peak memory;
+   update; (c) small, medium_MANO, large and huge take 2 warm-up, 4 timed and
+   6 more steps on the same batch: finite loss and grad norm, the launches
+   per step, a loss under fixed noise that falls over the 12 steps, step time
+   and peak memory;
    (d) phase (b) for medium_MANO, with the pose and shape terms.
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -246,6 +256,13 @@ def attention_flops(rows: int, D: int, products: int) -> float:
     return rows * (products * 2.0 * D * D + 2.0 * 3 * D)
 
 
+def knn_attention_flops(B: int, M: int, K: int, N: int, D: int) -> float:
+    """The least work of K1: three D x D products a (query, neighbour) row, the
+    k / v projection (two D x D products) once a cloud point, and the squared
+    distances to the cloud (8 operations a pair)."""
+    return attention_flops(B * M * K, D, 3) + B * N * 2 * 2.0 * D * D + 8.0 * B * M * N
+
+
 def _mlps(f, D):
     """(fc_delta, fc_gamma) weights of a width-D vector attention."""
     def mlp(d_in):
@@ -314,13 +331,15 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             args=(q, qxyz, qxyz, f(B, M, D), wk, wv, fcd, fcg),
             kw=dict(n_neighbor=K, return_idx=True),
             plain=knn_attn.plain_fused_knn_vector_attention,
-            flops=attention_flops(B * M * K, D, 5) + 8.0 * B * M * M),
+            flops=knn_attention_flops(B, M, K, M, D),
+            flops_five=attention_flops(B * M * K, D, 5) + 8.0 * B * M * M),
         "fused_knn_vector_attention/cross": dict(
             kernel="fused_knn_vector_attention",
             args=(q, qxyz, cloud, f(B, N, D), wk, wv, fcd, fcg),
             kw=dict(n_neighbor=K, return_idx=True),
             plain=knn_attn.plain_fused_knn_vector_attention,
-            flops=attention_flops(B * M * K, D, 5) + 8.0 * B * M * N),
+            flops=knn_attention_flops(B, M, K, N, D),
+            flops_five=attention_flops(B * M * K, D, 5) + 8.0 * B * M * N),
         "fused_anchor_vector_attention": dict(
             kernel="fused_anchor_vector_attention",
             args=(q, qxyz, f(B, A, D), f(B, A, D), _ball(rs, A), fcd, fcg), kw={},
@@ -358,7 +377,8 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             args=(qw, qxyz, cloud, fw(B, N, Dw), fw(Dw, Dw) * s, fw(Dw, Dw) * s, fcd_w, fcg_w),
             kw=dict(n_neighbor=K, return_idx=True),
             plain=knn_attn.plain_fused_knn_vector_attention,
-            flops=attention_flops(B * M * K, Dw, 5) + 8.0 * B * M * N, plain_on_card=True)
+            flops=knn_attention_flops(B, M, K, N, Dw),
+            flops_five=attention_flops(B * M * K, Dw, 5) + 8.0 * B * M * N, plain_on_card=True)
         cases[f"wide/fused_anchor_vector_attention/D{Dw}"] = dict(
             kernel="fused_anchor_vector_attention",
             args=(qw, qxyz, fw(B, A, Dw), fw(B, A, Dw), _ball(rs, A), fcd_w, fcg_w), kw={},
@@ -448,8 +468,134 @@ def phase_kernels(results, **shapes):
             results.setdefault(case, {})[_dt(dtype)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by)
+            if "flops_five" in c:  # K1: the bound of the TPU kernel's five products a row
+                results[case][_dt(dtype)]["bound_five_ms"] = bound_ms(nbytes, c["flops_five"],
+                                                                      dtype)[0]
             if lse_err is not None:
                 results[case][_dt(dtype)]["lse_max_abs_err"] = lse_err
+
+
+def core_shape_cases(rs: np.random.RandomState, B: int, N: int, D: int, K: int, M: int):
+    """K1 (cross), K2 (K anchors) and K8 (K gathered neighbours) at one (D, K, M):
+    kernel name -> (arguments, keywords, plain version), float32 on the CPU."""
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    s = 1 / math.sqrt(D)
+    q, qxyz = f(B, M, D), f(B, M, 3) * 0.4
+    cloud = _ball(rs, N)[None].expand(B, N, 3).contiguous()
+    fcd, fcg = _mlps(f, D)
+    return {
+        "fused_knn_vector_attention": (
+            (q, qxyz, cloud, f(B, N, D), f(D, D) * s, f(D, D) * s, fcd, fcg),
+            dict(n_neighbor=K, return_idx=True), knn_attn.plain_fused_knn_vector_attention),
+        "fused_anchor_vector_attention": (
+            (q, qxyz, f(B, K, D), f(B, K, D), _ball(rs, K), fcd, fcg), {},
+            knn_attn.plain_fused_anchor_vector_attention),
+        "fused_vector_attention": (
+            (q, f(B, M, K, D), f(B, M, K, D), f(B, M, K, 3) * 0.4, fcd, fcg), {},
+            vector_attn.plain_fused_vector_attention),
+    }
+
+
+def phase_core_shapes(results, B=2, N=600, D=256, wide=1024, Ks=(8, 24, 48), Ms=(1, 65),
+                      K_wide=24):
+    """Phase 1a: K1, K2 and K8 at neighbour counts that do not divide 32 and at 1
+    and 65 queries, at D and at ``wide`` for one such K, against their plain
+    versions on the card (``TOL``), K1's indices identical; and K1 fed with its
+    own returned indices (``neighbor_idx``): the selecting call's bits."""
+    log(f"phase 1a: the attention core at K = {', '.join(map(str, Ks))} and M = "
+        f"{', '.join(map(str, Ms))} (D = {D}; D = {wide} at K = {K_wide}), B={B}, N={N}")
+    rs = np.random.RandomState(9)
+    shapes = [(D, K, M) for K in Ks for M in Ms] + [(wide, K_wide, M) for M in Ms]
+    for Dw, K, M in shapes:
+        for kname, (args, kw, plain) in core_shape_cases(rs, B, N, Dw, K, M).items():
+            wrapper = KERNELS[kname]["wrapper"]
+            case = f"shapes/{kname}/D{Dw}_K{K}_M{M}"
+            for dtype in (torch.float32, torch.bfloat16):
+                dev = _to(tuple(_to(t, "cpu", None if i in KEEP_F32[kname] else dtype)
+                                for i, t in enumerate(args)), "cuda")
+                got = wrapper(*dev, **kw)
+                want = plain(*dev, **kw)
+                torch.cuda.synchronize()
+                row = {}
+                if kw.get("return_idx"):
+                    (got, gidx), (want, widx) = got, want
+                    if not torch.equal(gidx, widx):
+                        raise AssertionError(f"{case}: {int((gidx != widx).sum())} neighbour "
+                                             "indices differ")
+                    again = wrapper(*dev, n_neighbor=K, neighbor_idx=gidx)
+                    torch.cuda.synchronize()
+                    if not torch.equal(again, got):
+                        raise AssertionError(f"{case}: neighbor_idx gives other bits")
+                    row["from_idx_bit_identical"] = True
+                row["max_abs_err"] = compare(case, got, want, dtype)
+                results.setdefault(case, {})[_dt(dtype)] = row
+    log("  K1's indices identical to the plain selection in every case; K1 fed with its own "
+        "indices bit-identical to the selecting call")
+
+
+def time_graph(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``iters`` calls (captured after 3 calls on a side stream): the kernels'
+    time without the host's launch cost."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_cuda(graph.replay, iters=3, warmup=1) / iters
+
+
+def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32):
+    """Phase 1e, bf16 at the batch-4 shapes: the selection alone, the core
+    (K1 cross, K2, K8) and K7 (self, cross) call by call and from a CUDA graph,
+    and ``index_add_`` from a graph beside K7."""
+    log(f"phase 1e: call by call and from a CUDA graph, bf16, B={B}, M={M}, N={N}, D={D}, K={K} "
+        f"[{gpu_line()}]")
+    rs = np.random.RandomState(10)
+    bf = torch.bfloat16
+    f = lambda *s: _to(torch.from_numpy(rs.randn(*s).astype(np.float32)), "cuda", bf)
+    s = 1 / math.sqrt(D)
+    q = f(B, M, D)
+    qxyz = _to(torch.from_numpy((rs.randn(B, M, 3) * 0.4).astype(np.float32)), "cuda")
+    cloud = _to(_ball(rs, N)[None].expand(B, N, 3).contiguous(), "cuda")
+    fcd, fcg = _mlps(f, D)
+    xf, wk, wv = f(B, N, D), f(D, D) * s, f(D, D) * s
+    ka, va = f(B, K, D), f(B, K, D)
+    axyz = _to(_ball(rs, K), "cuda")
+    kg, vg, dg = f(B, M, K, D), f(B, M, K, D), f(B, M, K, 3) * 0.4
+    calls = {
+        "knn_select (K1's selection alone)": lambda: knn_attn.knn_select(qxyz, cloud, K),
+        "fused_knn_vector_attention": lambda: knn_attn.fused_knn_vector_attention(
+            q, qxyz, cloud, xf, wk, wv, fcd, fcg, n_neighbor=K),
+        "fused_anchor_vector_attention": lambda: knn_attn.fused_anchor_vector_attention(
+            q, qxyz, ka, va, axyz, fcd, fcg),
+        "fused_vector_attention": lambda: vector_attn.fused_vector_attention(
+            q, kg, vg, dg, fcd, fcg),
+    }
+    g = f(B, M, K, D)
+    for case, n_rows in (("self", M), ("cross", N)):
+        idx = _to(torch.from_numpy(rs.randint(0, n_rows, (B, M, K)).astype(np.int32)), "cuda")
+        rows = (torch.arange(B, device=idx.device)[:, None] * n_rows
+                + idx.reshape(B, -1).long()).reshape(-1)
+        src = g.reshape(-1, D).float()
+        sink = torch.empty((B * n_rows, D), dtype=torch.float32, device=idx.device)
+        calls[f"scatter_add_rows/{case}"] = \
+            lambda g=g, idx=idx, n=n_rows: scatter.scatter_add_rows(g, idx, n)
+        calls[f"index_add_/{case}"] = \
+            lambda sink=sink, rows=rows, src=src: sink.zero_().index_add_(0, rows, src)
+    timed = {}
+    with torch.inference_mode():
+        for name, call in calls.items():
+            timed[name] = dict(ms=time_cuda(call, iters=20, warmup=3), graph_ms=time_graph(call))
+            log(f"  {name}: call by call {timed[name]['ms']:.4f} ms, from a CUDA graph "
+                f"{timed[name]['graph_ms']:.4f} ms")
+    results["graph_times"] = timed
 
 
 # K6's gradients are held in float32 only. Its backward reruns the same
@@ -744,8 +890,9 @@ def phase_bucketed(results, B=4, M=799, N=4096, D=256, K=32, bucket_size=128, bl
             ms = time_cuda(lambda: fn(*dev, **kw))
             plain_ms = time_cuda(lambda: plain(*dev, **kw), iters=3, warmup=1)
             k1_ms = time_cuda(lambda: knn_attn.fused_knn_vector_attention(*k1_args, n_neighbor=K))
-            # what the call needs: K1's attention, and distances to the candidates only
-            flops = attention_flops(B * M * K, Dw, 5) + 8.0 * B * M * n_cand * bucket_size
+            # what the call needs: K1's least work, with distances to the candidates only
+            flops = knn_attention_flops(B, M, K, N, Dw) - 8.0 * B * M * N \
+                + 8.0 * B * M * n_cand * bucket_size
             nbytes = _nbytes(dev) + _nbytes(got) + _nbytes(margins)
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
             log(f"  {case} [{_dt(dtype)}] n_cand={n_cand}: kernel {ms:.3f} ms, plain on card "
@@ -829,7 +976,9 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     results = {}
     phase_kernels(results)
+    phase_core_shapes(results)
     phase_train_kernels(results)
+    phase_graph_times(results)
     bucketed_launches = phase_bucketed(results)
     select_launches = phase_select(results)
     launches = phase_serving(results)
@@ -1229,9 +1378,8 @@ def phase_train(results):
 
     log("phase 4a: train POEM-medium (f32 params, bf16 compute, remat) at B8, up to 8 views")
     t0 = time.time()
-    # dropout draws from the card's default generator, which a process seeds at
-    # random: seeded here, the steps' losses repeat bit for bit from run to run
-    torch.manual_seed(0)
+    # the Trainer seeds dropout per step from its own generator (MEDIUM's
+    # MANUAL_SEED): the steps' losses repeat from run to run
     model, aux = create_poem_model(MEDIUM["MODEL"], dtype=torch.bfloat16,
                                    param_dtype=torch.float32, device="cuda",
                                    generator=torch.Generator().manual_seed(0))
@@ -1307,7 +1455,8 @@ def phase_train(results):
 PROFILE_GROUPS = (
     ("K3 dense_attn_*kernel", ("dense_attn_kernel", "dense_attn_wg_kernel")),
     ("K3b dense_attn_bwd_*", "dense_attn_bwd_"),
-    ("K1 (K6 fwd) knn_select + vector_attn", ("knn_select_kernel", "vector_attn_kernel")),
+    ("K1 (K6 fwd) knn_select + core", ("knn_select_kernel", "vector_attn_kernel",
+                                        "core_gemm_kernel")),
     ("K7 scatter_*", "scatter_"),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "Conv", "implicit")),
     ("gemm (cuBLAS / cuDNN)", ("gemm", "Gemm", "sm90_xmma", "cutlass")),
@@ -1489,15 +1638,21 @@ def _probe_loss(trainer, batch, draws):
 
 
 def phase_train_tiers(results, names=("small", "medium_MANO", "large", "huge"), warmup=2,
-                      timed=4):
-    """Phase 4c: the train step of the other released tiers on phase 4a's batch."""
+                      timed=4, more=6):
+    """Phase 4c: the train step of the other released tiers on phase 4a's batch:
+    ``warmup`` + ``timed`` steps, then ``more`` untimed ones before the loss under
+    fixed noise is read again. Twelve steps, not six: at lr 1e-4 on one batch the
+    step-to-step noise of large is as large as six steps' progress (with its own
+    seed its loss under fixed noise read 0.3139 before, 0.4702 after two steps,
+    0.3292 after six and 0.2633 after twelve: ``scripts/torch_train_probe.py``,
+    NVIDIA H100 80GB HBM3, 700 W)."""
     from poem_v2_tpu_torch.configs import RELEASE
     from poem_v2_tpu_torch.data.synthetic import SyntheticMultiviewDataset
     from poem_v2_tpu_torch.models.poem import create_poem_model, draw_ref_noise
     from poem_v2_tpu_torch.training.trainer import Trainer
 
     log(f"phase 4c: train {', '.join(names)} (f32 params, bf16 compute, remat) on phase 4a's "
-        f"batch, {warmup} warm-up + {timed} timed steps")
+        f"batch, {warmup} warm-up + {timed} timed + {more} more steps")
     card = gpu_line()
     raw = SyntheticMultiviewDataset(batch_size=8, view_max=8, view_range=(1, 8), image_size=256,
                                     seed=3).sample_batch()
@@ -1506,7 +1661,6 @@ def phase_train_tiers(results, names=("small", "medium_MANO", "large", "huge"), 
     for name in names:
         cfg = RELEASE[name]
         for bs in (8, 4, 2, 1):
-            torch.manual_seed(0)
             model, aux = create_poem_model(cfg["MODEL"], dtype=torch.bfloat16,
                                            param_dtype=torch.float32, device="cuda",
                                            generator=torch.Generator().manual_seed(0))
@@ -1516,9 +1670,8 @@ def phase_train_tiers(results, names=("small", "medium_MANO", "large", "huge"), 
             fits = True
             try:
                 first = _probe_loss(trainer, batch, draws)
-                torch.manual_seed(0)
                 metrics, events = [], []
-                for i in range(warmup + timed):
+                for i in range(warmup + timed + more):
                     if i == warmup:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
@@ -1557,8 +1710,8 @@ def phase_train_tiers(results, names=("small", "medium_MANO", "large", "huge"), 
         # under fixed noise must fall over the steps
         if not last < first:
             raise AssertionError(f"{name}: loss under fixed noise did not fall over "
-                                 f"{warmup + timed} steps: {first} -> {last}")
-        med = float(np.median(times[warmup:]))
+                                 f"{warmup + timed + more} steps: {first} -> {last}")
+        med = float(np.median(times[warmup:warmup + timed]))
         n_params = sum(p.numel() for p in model.parameters())
         log(f"  {name} B{bs} [{card}]: {n_params / 1e6:.2f} M parameters, median step "
             f"{med:.2f} ms ({', '.join(f'{t:.1f}' for t in times)}), {bs * 1e3 / med:.2f} "

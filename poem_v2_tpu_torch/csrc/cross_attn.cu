@@ -741,28 +741,6 @@ __global__ void __launch_bounds__(FwdCfg<HD>::THREADS, 1)
 
 // tensor map over a contiguous (B, rows, H) bfloat16 tensor, dimensions (H,
 // rows, B), with a box of `box_rows` rows of one head's first 64 (or 32) columns
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// `cuTensorMapEncodeTiled` of the libcuda that the runtime has loaded
-static EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
-  }();
-  return fn;
-}
-
 template <int HD>
 static bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int box_rows) {
   EncodeTiledFn encode = encode_tiled_fn();

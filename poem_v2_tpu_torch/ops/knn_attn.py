@@ -23,11 +23,19 @@ launches. K1 and K2 have no backward: on the card they raise when autograd
 would need one.
 
 Widths: the kernels take float32 or bfloat16 tensors with D a multiple of
-4 up to 1024 (the released tiers use 128, 256, 512 and 1024) and a
-neighbour or anchor count K with 32 % K == 0 (K at most the cloud's size);
-the wrappers raise ``ValueError`` for anything else, ``TypeError`` for
-another dtype. The selection takes any cloud size (packed 12-bit-column
-keys up to 4096 points, argmin rounds above).
+4 up to 1024 (the released tiers use 128, 256, 512 and 1024) and any
+neighbour or anchor count K (at most the cloud's size); the wrappers raise
+``ValueError`` for anything else, ``TypeError`` for another dtype. The
+selection takes any cloud size (packed 12-bit-column keys up to 4096
+points, argmin rounds above). :func:`fused_knn_vector_attention` also takes
+the caller's indices (``neighbor_idx``, the TPU kernel's
+``_kernel_from_idx``) and then skips the selection.
+
+In bfloat16 the attention is the tensor-core chain of ``csrc/knn_attn.cu``
+(see ``vector_attn.run_attention_core``): K1 projects the whole cloud once,
+kv = x_full [Wk | Wv] in float32, and gathers its rows, where the TPU kernel
+projects every gathered row; the same arithmetic up to the order of float32
+sums.
 
 Numerics follow the TPU kernel: operands of every matrix product are cast
 to the compute dtype (that of ``q``), products accumulate in float32,
@@ -44,8 +52,8 @@ from . import _lib
 from .points import index_points
 from .remat import kernel_outputs
 from .scatter import index_points_mxu
-from .vector_attn import (_mm, check_attention_shapes, check_one_device,
-                          vector_attention_plain, vector_attention_reference)
+from .vector_attn import (MODE_ANCHOR, MODE_KNN, _mm, check_attention_shapes, check_one_device,
+                          run_attention_core, vector_attention_plain, vector_attention_reference)
 
 PACKED_MAX_POINTS = 4096  # the packed keys keep the column in 12 bits
 
@@ -86,6 +94,22 @@ def knn_select_plain(query_xyz: torch.Tensor, pt_xyz: torch.Tensor, k: int) -> t
     return torch.sort(d2, dim=-1, stable=True).indices[..., :k].to(torch.int32)
 
 
+def knn_select(query_xyz: torch.Tensor, pt_xyz: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, M, k) int32 exact K-NN indices, as K1 selects them: the plain
+    version on the CPU, ``knn_select_kernel`` on the card (no launch count of
+    its own: it is part of K1)."""
+    if query_xyz.device.type == "cpu":
+        return knn_select_plain(query_xyz, pt_xyz, k)
+    B, M, _ = query_xyz.shape
+    N = pt_xyz.shape[1]
+    qxyz = query_xyz.float().contiguous()
+    pxyz = pt_xyz.float().contiguous()
+    idx = torch.empty((B, M, k), dtype=torch.int32, device=query_xyz.device)
+    _lib.lib().call("poem_knn_select", qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(),
+                    B, M, N, k, int(use_packed_keys(N)), _lib.stream_ptr(query_xyz))
+    return idx
+
+
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
     B, M, K = idx.shape
@@ -105,9 +129,11 @@ def _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma
 
 
 def plain_fused_knn_vector_attention(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma,
-                                     n_neighbor: int = 32, return_idx: bool = False):
+                                     n_neighbor: int = 32, return_idx: bool = False,
+                                     neighbor_idx=None):
     """Plain PyTorch version of :func:`fused_knn_vector_attention`."""
-    idx = knn_select_plain(query_xyz, pt_xyz, n_neighbor)
+    idx = knn_select_plain(query_xyz, pt_xyz, n_neighbor) if neighbor_idx is None \
+        else neighbor_idx
     out = _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx)
     return (out, idx) if return_idx else out
 
@@ -125,8 +151,17 @@ def plain_fused_anchor_vector_attention(q, query_xyz, k_anchor, v_anchor, anchor
     return vector_attention_plain(q, k, v, delta, fc_delta, fc_gamma)
 
 
-def _weights(dt, tensors):
-    return [t.to(dt).contiguous() for t in tensors]
+def check_neighbor_idx(neighbor_idx: torch.Tensor, B: int, M: int, K: int, N: int) -> None:
+    """(B, M, K) integer indices into a cloud of N points, else ``ValueError``."""
+    if tuple(neighbor_idx.shape) != (B, M, K) or neighbor_idx.is_floating_point():
+        raise ValueError(f"neighbor_idx must be ({B}, {M}, {K}) integers, got "
+                         f"{tuple(neighbor_idx.shape)} {neighbor_idx.dtype}")
+    # the values are read back to the host, except while a CUDA graph is being
+    # captured, where a read-back is not allowed
+    if neighbor_idx.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    if neighbor_idx.numel() and not bool(((neighbor_idx >= 0) & (neighbor_idx < N)).all()):
+        raise ValueError(f"neighbor_idx holds indices outside [0, {N})")
 
 
 def fused_knn_vector_attention(
@@ -140,36 +175,39 @@ def fused_knn_vector_attention(
     fc_gamma: Sequence[torch.Tensor],  # (g0 (D, D), c0, g1 (D, D), c1)
     n_neighbor: int = 32,
     return_idx: bool = False,
+    neighbor_idx: torch.Tensor = None,  # (B, M, K) precomputed exact-KNN indices
 ):
     """Vector attention of every query over its ``n_neighbor`` exact
     nearest cloud points; (B, M, D), plus the (B, M, K) int32 indices
-    when ``return_idx``."""
+    when ``return_idx``. With ``neighbor_idx`` the selection is skipped and
+    those neighbours are attended; it excludes ``return_idx``, as in the
+    JAX function."""
     B, M, D = q.shape
     N = pt_xyz.shape[1]
     if n_neighbor > N:
         raise ValueError(f"n_neighbor={n_neighbor} exceeds the cloud's {N} points")
+    if neighbor_idx is not None:
+        if return_idx:
+            raise ValueError("neighbor_idx and return_idx exclude each other: the indices are "
+                             "the caller's")
+        check_neighbor_idx(neighbor_idx, B, M, n_neighbor, N)
     if q.device.type == "cpu":
         return plain_fused_knn_vector_attention(
-            q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, n_neighbor, return_idx)
+            q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, n_neighbor, return_idx,
+            neighbor_idx)
     check_one_device(q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma)
-    check_attention_shapes(D, n_neighbor)
+    check_attention_shapes(D)
     _lib.no_grad_guard("fused_knn_vector_attention", q, query_xyz, pt_xyz, x_full, wk, wv,
-                   *fc_delta, *fc_gamma)
-    dt = q.dtype
-    L = _lib.lib()
+                       *fc_delta, *fc_gamma)
     qxyz = query_xyz.float().contiguous()
     pxyz = pt_xyz.float().contiguous()
-    qc = q.contiguous()
-    xf = x_full.to(dt).contiguous()
-    ws = _weights(dt, [wk, wv, *fc_delta, *fc_gamma])
-    idx = torch.empty((B, M, n_neighbor), dtype=torch.int32, device=q.device)
-    out = torch.empty_like(qc)
-    s = _lib.stream_ptr(q)
-    L.call("poem_knn_select", qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(),
-           B, M, N, n_neighbor, int(use_packed_keys(N)), s)
-    L.call("poem_vector_attention", _lib.dtype_code(qc), 0, qc.data_ptr(),
-           qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(), xf.data_ptr(), None, None,
-           *[w.data_ptr() for w in ws], out.data_ptr(), B, M, N, D, n_neighbor, s)
+    if neighbor_idx is None:
+        idx = knn_select(qxyz, pxyz, n_neighbor)
+    else:
+        check_one_device(q, neighbor_idx)
+        idx = neighbor_idx.to(torch.int32).contiguous()
+    out = run_attention_core(MODE_KNN, q, qxyz, pxyz, idx, x_full, None, None, wk, wv, fc_delta,
+                             fc_gamma, N, n_neighbor)
     fused_knn_vector_attention.launches += 1
     return (out, idx) if return_idx else out
 
@@ -193,22 +231,13 @@ def fused_anchor_vector_attention(
         return plain_fused_anchor_vector_attention(
             q, query_xyz, k_anchor, v_anchor, anchor_xyz, fc_delta, fc_gamma)
     check_one_device(q, query_xyz, k_anchor, v_anchor, anchor_xyz, *fc_delta, *fc_gamma)
-    check_attention_shapes(D, A)
+    check_attention_shapes(D)
     _lib.no_grad_guard("fused_anchor_vector_attention", q, query_xyz, k_anchor, v_anchor,
-                   anchor_xyz, *fc_delta, *fc_gamma)
-    dt = q.dtype
-    L = _lib.lib()
+                       anchor_xyz, *fc_delta, *fc_gamma)
     axyz = anchor_xyz.float()
     axyz = (axyz if axyz.dim() == 3 else axyz[None]).expand(B, A, 3).contiguous()
-    qxyz = query_xyz.float().contiguous()
-    qc = q.contiguous()
-    ka = k_anchor.to(dt).contiguous()
-    va = v_anchor.to(dt).contiguous()
-    ws = _weights(dt, [*fc_delta, *fc_gamma])
-    out = torch.empty_like(qc)
-    L.call("poem_vector_attention", _lib.dtype_code(qc), 1, qc.data_ptr(),
-           qxyz.data_ptr(), axyz.data_ptr(), None, ka.data_ptr(), va.data_ptr(), None, None, None,
-           *[w.data_ptr() for w in ws], out.data_ptr(), B, M, A, D, A, _lib.stream_ptr(q))
+    out = run_attention_core(MODE_ANCHOR, q, query_xyz.float().contiguous(), axyz, None, k_anchor,
+                             v_anchor, None, None, None, fc_delta, fc_gamma, A, A)
     fused_anchor_vector_attention.launches += 1
     return out
 
@@ -412,33 +441,25 @@ def fused_knn_vector_attention_bucketed(
             q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, fc_delta, fc_gamma, n_neighbor,
             block_q, n_cand, bucket_size, return_idx)
     check_one_device(q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, *fc_delta, *fc_gamma)
-    check_attention_shapes(D, n_neighbor)
+    check_attention_shapes(D)
     if n_cand * bucket_size > MAX_CANDIDATE_POINTS:
         raise ValueError(f"the CUDA kernel takes at most {MAX_CANDIDATE_POINTS} candidate "
                          f"points a block, got {n_cand} x {bucket_size}")
     _lib.no_grad_guard("fused_knn_vector_attention_bucketed", q, query_xyz, pt_xyz, x_full,
                        wk, wv, *fc_delta, *fc_gamma)
-    dt = q.dtype
-    L = _lib.lib()
     qxyz = query_xyz.float().contiguous()
     pxyz = pt_xyz.float().contiguous()
     lo32, hi32 = lo.float().contiguous(), hi.float().contiguous()
-    qc = q.contiguous()
-    xf = x_full.to(dt).contiguous()
-    ws = _weights(dt, [wk, wv, *fc_delta, *fc_gamma])
     cand = select_candidate_buckets(_pad_queries_edge(qxyz, block_q), lo32, hi32, block_q,
                                     n_cand).contiguous()
     nblk = _round_up(M, block_q) // block_q
     idx = torch.empty((B, M, n_neighbor), dtype=torch.int32, device=q.device)
     margins = torch.empty((B, nblk), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(qc)
-    s = _lib.stream_ptr(q)
-    L.call("poem_knn_select_bucketed", qxyz.data_ptr(), pxyz.data_ptr(), cand.data_ptr(),
-           lo32.data_ptr(), hi32.data_ptr(), idx.data_ptr(), margins.data_ptr(),
-           B, M, N, NB, n_neighbor, block_q, n_cand, bucket_size, s)
-    L.call("poem_vector_attention", _lib.dtype_code(qc), 0, qc.data_ptr(),
-           qxyz.data_ptr(), pxyz.data_ptr(), idx.data_ptr(), xf.data_ptr(), None, None,
-           *[w.data_ptr() for w in ws], out.data_ptr(), B, M, N, D, n_neighbor, s)
+    _lib.lib().call("poem_knn_select_bucketed", qxyz.data_ptr(), pxyz.data_ptr(), cand.data_ptr(),
+                    lo32.data_ptr(), hi32.data_ptr(), idx.data_ptr(), margins.data_ptr(),
+                    B, M, N, NB, n_neighbor, block_q, n_cand, bucket_size, _lib.stream_ptr(q))
+    out = run_attention_core(MODE_KNN, q, qxyz, pxyz, idx, x_full, None, None, wk, wv, fc_delta,
+                             fc_gamma, N, n_neighbor)
     fused_knn_vector_attention_bucketed.launches += 1
     return (out, margins, idx) if return_idx else (out, margins)
 

@@ -5,8 +5,11 @@ Counterparts of ``poem_v2_tpu/ops/pallas_scatter.py``:
 * :func:`scatter_add_rows` <- ``scatter_add_rows``: out[b, idx[b, m, k]] +=
   grads[b, m, k] into a (B, n_rows, D) float32 output. CPU tensors take
   :func:`plain_scatter_add_rows` (``index_add_`` in float32), CUDA tensors
-  the deterministic kernel in ``csrc/scatter.cu``: two launches on one
-  input give the same bits.
+  the deterministic kernels in ``csrc/scatter.cu``: a stable counting sort
+  of the entries into rows, in parallel over segments of ``SEGMENT``
+  entries of each sample (histogram, scan, placement), then each row summed
+  in ascending entry order with 16-byte loads. Two launches on one input
+  give the same bits; a call counts one launch.
 * :func:`index_points_mxu` <- ``index_points_mxu``: a plain row gather
   whose backward is :func:`scatter_add_rows` cast to the points' dtype.
 
@@ -19,6 +22,9 @@ import torch
 
 from . import _lib
 from .points import index_points
+
+SEGMENT = 1024  # entries a segment of the sort (csrc/scatter.cu: SC_SEG)
+MAX_ROWS = 51200  # a segment's histogram of the rows lives in 200 KB of shared memory
 
 
 def plain_scatter_add_rows(grads: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -49,14 +55,16 @@ def scatter_add_rows(
         raise ValueError(f"idx must be (B, M, K) = ({B}, {M}, {K}), got {tuple(idx.shape)}")
     if idx.device != grads.device:
         raise ValueError("grads and idx must be on one device")
-    if not 1 <= n_rows <= 51200:
-        raise ValueError(f"the CUDA kernel takes 1 <= n_rows <= 51200, got {n_rows}")
+    if not 1 <= n_rows <= MAX_ROWS:
+        raise ValueError(f"the CUDA kernel takes 1 <= n_rows <= {MAX_ROWS}, got {n_rows}")
     E = M * K
     g = grads.contiguous()
     ix = idx.to(torch.int32).contiguous()
     dev = grads.device
     out = torch.empty((B, n_rows, D), dtype=torch.float32, device=dev)
-    counts = torch.empty((B, n_rows), dtype=torch.int32, device=dev)
+    # the segments' histograms, the first slots within each row, the row totals
+    counts = torch.empty((B * (2 * -(-E // SEGMENT) + 1) * n_rows,), dtype=torch.int32,
+                         device=dev)
     offsets = torch.empty((B, n_rows + 1), dtype=torch.int32, device=dev)
     perm = torch.empty((B, E), dtype=torch.int32, device=dev)
     _lib.lib().call("poem_scatter_add_rows", _lib.dtype_code(g), g.data_ptr(), ix.data_ptr(),

@@ -5,15 +5,20 @@ Counterparts of ``poem_v2_tpu/ops/pallas_vector_attn.py``:
 * :func:`fused_vector_attention` <- ``fused_vector_attention`` (K8): the
   attention core of the point-transformer blocks on keys, values and
   offsets the caller has gathered. CPU tensors take the plain version
-  :func:`vector_attention_plain`, CUDA tensors the kernel in
-  ``csrc/knn_attn.cu`` (the core it shares with K1 and K2); there is no
-  fallback from one to the other. ``fused_vector_attention.launches``
-  counts kernel launches. Eval only: it has no backward and raises on the
-  card when autograd would need one. It takes D a multiple of 4 up to 1024
-  and K with 32 % K == 0, float32 or bfloat16, and raises for others.
-  Numerics follow the TPU kernel: operands of the four products are cast to
-  the compute dtype (that of ``q``), products accumulate in float32, and
-  ``x = q - k + pos``, the softmax and the aggregate stay float32.
+  :func:`vector_attention_plain`, CUDA tensors the kernels in
+  ``csrc/knn_attn.cu`` (the core it shares with K1 and K2, launched by
+  :func:`run_attention_core`); there is no fallback from one to the other.
+  ``fused_vector_attention.launches`` counts calls that launched the core.
+  Eval only: it has no backward and raises on the card when autograd would
+  need one. It takes any K and D a multiple of 4 up to 1024, float32 or
+  bfloat16, and raises for others. Numerics follow the TPU kernel: operands
+  of the four products are cast to the compute dtype (that of ``q``),
+  products accumulate in float32, and ``x = q - k + pos``, the softmax and
+  the aggregate stay float32. In bfloat16 the core is a chain of tensor-core
+  kernels over row tiles of 128 whose intermediates (x, h in bfloat16,
+  v + pos in float32; K1's projected cloud in float32) live in scratch that
+  :func:`run_attention_core` allocates; widths that are no multiple of 128 are padded with zero
+  channels, which changes no real channel. Float32 runs the scalar FMA kernel.
 * :func:`vector_attention_reference` <- ``vector_attention_reference``,
   the training math: every product, the softmax over the neighbour axis
   and the aggregate run in the inputs' dtype, with the 1/sqrt(D) scale
@@ -27,10 +32,14 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from . import _lib
 
-MAX_D = 1024  # three [16][D] float32 buffers of a block must fit 227 KB
+MAX_D = 1024  # the float32 kernel: three [16][D] float32 buffers of a block must fit 227 KB
+CORE_TILE = 128  # rows of a tile of the bfloat16 chain (csrc/knn_attn.cu: CR)
+CORE_WIDTH = 128  # the bfloat16 chain takes widths that are multiples of this
+MODE_KNN, MODE_ANCHOR, MODE_GATHERED = 0, 1, 2
 
 
 def vector_attention_reference(
@@ -82,11 +91,67 @@ def vector_attention_plain(
     return torch.sum(attn * (v + pos), dim=-2).to(dt)
 
 
-def check_attention_shapes(D: int, rows: int) -> None:
-    """What csrc/knn_attn.cu takes: D % 4 == 0 up to 1024, rows per query dividing 32."""
-    if D < 4 or D > MAX_D or D % 4 or rows < 1 or 32 % rows:
-        raise ValueError(f"the CUDA kernel takes D % 4 == 0 up to {MAX_D} and 32 % K == 0, "
-                         f"got D={D}, K={rows}")
+def check_attention_shapes(D: int) -> None:
+    """What csrc/knn_attn.cu takes: D % 4 == 0 up to 1024 (any neighbour count)."""
+    if D < 4 or D > MAX_D or D % 4:
+        raise ValueError(f"the CUDA kernel takes D % 4 == 0 up to {MAX_D}, got D={D}")
+
+
+def core_rows(B: int, M: int, K: int) -> int:
+    """Rows of the bfloat16 chain's intermediates: tiles of 128 that hold
+    floor(128 / K) whole queries, or ceil(K / 128) tiles a query for K > 128."""
+    tiles = -(-M // (CORE_TILE // K)) if K <= CORE_TILE else M * -(-K // CORE_TILE)
+    return B * tiles * CORE_TILE
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def run_attention_core(mode: int, q, qxyz, cxyz, idx, xk, va, delta, wk, wv, fc_delta, fc_gamma,
+                       N: int, K: int) -> torch.Tensor:
+    """Launch the attention core of ``csrc/knn_attn.cu`` on CUDA tensors;
+    (B, M, D) in q's dtype.
+
+    mode MODE_KNN (K1): ``idx`` (B, M, K) int32 rows of ``xk`` = x_full (B, N, D),
+    projected by ``wk`` / ``wv``; MODE_ANCHOR (K2): ``xk`` / ``va`` (B, N, D)
+    anchors' keys / values at ``cxyz`` (B, N, 3); MODE_GATHERED (K8): ``xk`` /
+    ``va`` (B, M, K, D) and ``delta`` (B, M, K, 3). Feature tensors and weights
+    are taken in q's dtype; xyz float32."""
+    B, M, D = q.shape
+    dt = q.dtype
+    code = _lib.dtype_code(q)
+    ws = [*(() if wk is None else (wk, wv)), *fc_delta, *fc_gamma]
+    feats = [q, xk, va]
+    Dp = D
+    if dt == torch.bfloat16 and D % CORE_WIDTH:
+        # zero channels: every product's sum and every real channel stay as they were
+        Dp = -(-D // CORE_WIDTH) * CORE_WIDTH
+        pad = Dp - D
+        feats = [None if t is None else F.pad(t, (0, pad)) for t in feats]
+        ws = [F.pad(w, (0, pad, 0, pad)) if w.dim() == 2 and w.shape[0] == D else
+              F.pad(w, (0, pad)) for w in ws]
+    qc, kc, vc = (None if t is None else _aligned(t.to(dt)) for t in feats)
+    ws = [_aligned(w.to(dt)) for w in ws]
+    if wk is None:
+        ws = [None, None, *ws]
+    dl = None if delta is None else delta.to(dt).contiguous()
+    out = torch.empty((B, M, Dp), dtype=dt, device=q.device)
+    kv = ta = tb = vp = None
+    if dt == torch.bfloat16:
+        rows = core_rows(B, M, K)
+        ta = torch.empty((rows, Dp), dtype=dt, device=q.device)
+        tb = torch.empty_like(ta)
+        vp = torch.empty((rows, Dp), dtype=torch.float32, device=q.device)
+        if mode == MODE_KNN:
+            kv = torch.empty((B, N, 2 * Dp), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _lib.lib().call("poem_vector_attention", code, mode, qc.data_ptr(), ptr(qxyz), ptr(cxyz),
+                    ptr(idx), ptr(kc), ptr(vc), ptr(dl), *[ptr(w) for w in ws], out.data_ptr(),
+                    ptr(kv), ptr(ta), ptr(tb), ptr(vp), B, M, N, Dp, K,
+                    1.0 / math.sqrt(D), _lib.stream_ptr(q))
+    return out if Dp == D else out[..., :D]
 
 
 def check_one_device(*ts) -> None:
@@ -122,16 +187,10 @@ def fused_vector_attention(
     if q.device.type == "cpu":
         return plain_fused_vector_attention(q, k_g, v_g, delta, fc_delta, fc_gamma)
     check_one_device(q, k_g, v_g, delta, *fc_delta, *fc_gamma)
-    check_attention_shapes(D, K)
+    check_attention_shapes(D)
     _lib.no_grad_guard("fused_vector_attention", q, k_g, v_g, delta, *fc_delta, *fc_gamma)
-    dt = q.dtype
-    qc = q.contiguous()
-    kc, vc, dc = (t.to(dt).contiguous() for t in (k_g, v_g, delta))
-    ws = [w.to(dt).contiguous() for w in (*fc_delta, *fc_gamma)]
-    out = torch.empty_like(qc)
-    _lib.lib().call("poem_vector_attention", _lib.dtype_code(qc), 2, qc.data_ptr(), None, None, None, kc.data_ptr(), vc.data_ptr(), dc.data_ptr(),
-                    None, None, *[w.data_ptr() for w in ws], out.data_ptr(), B, M, 0, D, K,
-                    _lib.stream_ptr(q))
+    out = run_attention_core(MODE_GATHERED, q, None, None, None, k_g, v_g, delta, None, None,
+                             fc_delta, fc_gamma, 0, K)
     fused_vector_attention.launches += 1
     return out
 

@@ -7,7 +7,11 @@ updates with the same step counting: the n-th update (n = 0, 1, ...) uses
 ``schedule(n)``, Adam's bias correction uses n + 1, and a StepLR boundary
 at step b applies from update b on (optax ``piecewise_constant_schedule``).
 Parameters without a gradient take a zero gradient, as optax sees them.
-Gradient accumulation (optax ``MultiSteps``) is not ported yet.
+``GRAD_ACCUM_STEPS`` = k > 1 is optax ``MultiSteps``: each call folds the
+gradients into their running mean (``acc + (g - acc) / (n + 1)``, optax's
+formula); the k-th call applies the whole chain (clip, optimiser, schedule)
+to that mean and the others leave the parameters alone, so the update count
+advances once per k calls.
 """
 
 from __future__ import annotations
@@ -82,12 +86,13 @@ class Optimizer:
             clip = cfg.get("GRAD_CLIP", {}) or {}
             self.clip = (clip.get("MODE", "per_param"), clip.get("NORM", 1.0),
                          float(clip.get("TYPE", 2)))
-        if cfg.get("GRAD_ACCUM_STEPS", 1) not in (None, 0, 1):
-            raise NotImplementedError("GRAD_ACCUM_STEPS is not ported yet")
-        self.count = 0
+        self.accum = int(cfg.get("GRAD_ACCUM_STEPS", 1) or 1)
+        self.count = 0       # updates applied
+        self.mini_step = 0   # gradients folded into acc since the last update
         zeros = lambda: [torch.zeros_like(p) for p in self.params]
         self.mu = zeros()
         self.nu = zeros() if self.name != "sgd" else []
+        self.acc = zeros() if self.accum > 1 else []
 
     def grads(self) -> List[torch.Tensor]:
         """Each parameter's gradient (zeros where it has none)."""
@@ -99,6 +104,17 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> None:
         grads = self.grads()
+        if self.accum > 1:
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step += 1
+            if self.mini_step < self.accum:
+                return
+            self.mini_step = 0
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
         if self.clip is not None:
             mode, max_norm, norm_type = self.clip
             if mode == "global":

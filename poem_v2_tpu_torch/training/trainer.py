@@ -42,7 +42,14 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer: Optimi
 
 
 class Trainer:
-    """Owns the optimiser, the step and the reference-jitter generator."""
+    """Owns the optimiser, the step and the generator of its random draws.
+
+    Every step draws the reference jitter and then a dropout seed from
+    ``self.generator`` (seeded from ``seed`` or ``TRAIN.MANUAL_SEED``), and
+    runs under a fork of the global generators (the CPU's and the model's
+    device's) seeded with it: dropout is a function of the seed and the step,
+    as the JAX Trainer splits its dropout key from the state's key every
+    step, and the caller's generators come out as they went in."""
 
     def __init__(self, model: torch.nn.Module, aux: Mapping[str, Any], train_cfg: Mapping,
                  loss_cfg: Mapping, steps_per_epoch: int = 1000, seed: Optional[int] = None):
@@ -69,4 +76,8 @@ class Trainer:
         """One train step on a batch of numpy arrays or tensors; returns the metrics."""
         dev_batch = self.to_device(batch)
         draws = draw_ref_noise(self.generator, dev_batch["image"].shape[0])
-        return self._train_step(dev_batch, draws)
+        dropout_seed = int(torch.randint(0, 2 ** 62, (), generator=self.generator))
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(dropout_seed)
+            return self._train_step(dev_batch, draws)

@@ -18,6 +18,8 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "_to", lambda x, device, dtype=None: real_to(x, "cpu", dtype))
     monkeypatch.setattr(chip_smoke, "time_cuda",
                         lambda fn, iters=1, warmup=0: (fn(), 1e-3)[1])
+    monkeypatch.setattr(chip_smoke, "time_graph", lambda fn, iters=1: (fn(), 1e-3)[1])
+    monkeypatch.setattr(chip_smoke, "gpu_line", lambda: "CPU rehearsal")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
 
 
@@ -36,14 +38,50 @@ def test_phase_kernels_rehearsal(on_cpu):
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for row in by_dtype.values():
+            k1 = case.split("/")[int(case.startswith("wide/"))] == "fused_knn_vector_attention"
             assert set(row) == {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by"} | ({"lse_max_abs_err"} if case in dense else set())
+                                "bound_by"} | ({"lse_max_abs_err"} if case in dense else set()) \
+                | ({"bound_five_ms"} if k1 else set())
+            if k1:  # the least work (3 products a row, 2 a cloud point) bounds below 5 a row
+                assert row["bound_ms"] <= row["bound_five_ms"]
             assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
             assert row["max_abs_err"] == 0.0  # the same plain version on both sides
             assert row.get("lse_max_abs_err", 0.0) == 0.0
     for case in ("dense_cross_attention", "grid_sample_points_fused", "scrambled_merge_gather"):
         assert results[case]["bfloat16"]["library_ms"] is not None, case
     json.dumps(results)  # what goes into the kernels line is serialisable
+
+
+def test_phase_core_shapes_rehearsal(on_cpu):
+    """Phase 1a at tiny shapes: K1, K2, K8 at K = 3 and 5 (no divisor of 32), one
+    and 7 queries, at D = 32 and 48; K1 fed with its own indices."""
+    results = {}
+    chip_smoke.phase_core_shapes(results, B=2, N=40, D=32, wide=48, Ks=(3, 5), Ms=(1, 7),
+                                 K_wide=5)
+    kernels = ("fused_knn_vector_attention", "fused_anchor_vector_attention",
+               "fused_vector_attention")
+    shapes = [(32, K, M) for K in (3, 5) for M in (1, 7)] + [(48, 5, 1), (48, 5, 7)]
+    assert set(results) == {f"shapes/{k}/D{D}_K{K}_M{M}" for k in kernels for D, K, M in shapes}
+    for case, by_dtype in results.items():
+        assert set(by_dtype) == {"float32", "bfloat16"}
+        for row in by_dtype.values():
+            assert row["max_abs_err"] == 0.0  # the same plain version on both sides
+            assert row.get("from_idx_bit_identical", True)
+            assert ("from_idx_bit_identical" in row) == ("/fused_knn_" in case)
+    json.dumps(results)
+
+
+def test_phase_graph_times_rehearsal(on_cpu):
+    results = {}
+    chip_smoke.phase_graph_times(results, B=2, M=19, N=64, D=32, K=8)
+    assert set(results) == {"graph_times"}
+    assert set(results["graph_times"]) == {
+        "knn_select (K1's selection alone)", "fused_knn_vector_attention",
+        "fused_anchor_vector_attention", "fused_vector_attention", "scatter_add_rows/self",
+        "scatter_add_rows/cross", "index_add_/self", "index_add_/cross"}
+    for row in results["graph_times"].values():
+        assert set(row) == {"ms", "graph_ms"}
+    json.dumps(results)
 
 
 def test_phase_train_kernels_rehearsal(on_cpu):

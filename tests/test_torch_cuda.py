@@ -49,7 +49,13 @@ def _mk(rs, *shape, scale=1.0):
                                          # K = 32 is folded in two chunks, K = 16 in one, and
                                          # K = 8 puts two queries in a block
                                          (799, 4096, 512, 32, False), (203, 1000, 1024, 32, False),
-                                         (65, 300, 1024, 16, False), (41, 100, 1024, 8, True)])
+                                         (65, 300, 1024, 16, False), (41, 100, 1024, 8, True),
+                                         # any K: bf16 tiles of 128 rows hold floor(128 / K)
+                                         # queries, K > 128 spans tiles; one query
+                                         (67, 200, 64, 3, False), (65, 600, 256, 24, False),
+                                         (65, 600, 256, 48, False), (65, 600, 256, 64, False),
+                                         (1, 600, 256, 24, False), (65, 600, 1024, 48, False),
+                                         (9, 400, 64, 200, False)])
 def test_knn_vector_attention(cuda, dtype, M, N, D, K, dup):
     rs = np.random.RandomState(M + N)
     pt = _mk(rs, 2, N, 3)
@@ -72,10 +78,38 @@ def test_knn_vector_attention(cuda, dtype, M, N, D, K, dup):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [128, 256, 512, 1024])
-def test_anchor_vector_attention(cuda, dtype, D):
+@pytest.mark.parametrize("D,K", [(256, 32), (1024, 24)])
+def test_knn_vector_attention_from_neighbor_idx(cuda, dtype, D, K):
+    """K1 fed with its own returned indices gives the selecting call's bits,
+    and counts one launch."""
+    rs = np.random.RandomState(D + K)
+    B, M, N = 2, 300, 2000
+    s = 1 / math.sqrt(D)
+    args = [_mk(rs, B, M, D).to(dtype), _mk(rs, B, M, 3), _mk(rs, B, N, 3),
+            _mk(rs, B, N, D).to(dtype), _mk(rs, D, D, scale=s), _mk(rs, D, D, scale=s)]
+    fcd, fcg = _attn_mlps(rs, D)
+    dev = lambda ts: [t.to(cuda) for t in ts]
+    args, fcd, fcg = dev(args), dev(fcd), dev(fcg)
+    got, idx = knn_attn.fused_knn_vector_attention(*args, fcd, fcg, n_neighbor=K,
+                                                   return_idx=True)
+    before = knn_attn.fused_knn_vector_attention.launches
+    again = knn_attn.fused_knn_vector_attention(*args, fcd, fcg, n_neighbor=K,
+                                                neighbor_idx=idx.long())
+    torch.cuda.synchronize()
+    assert knn_attn.fused_knn_vector_attention.launches == before + 1
+    assert torch.equal(again, got)
+    with pytest.raises(ValueError, match="exclude"):
+        knn_attn.fused_knn_vector_attention(*args, fcd, fcg, n_neighbor=K, neighbor_idx=idx,
+                                            return_idx=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,A,M", [(128, 32, 799), (256, 32, 799), (512, 32, 799),
+                                   (1024, 32, 799), (256, 3, 65), (256, 24, 65), (256, 48, 1),
+                                   (256, 64, 65), (1024, 24, 65)])
+def test_anchor_vector_attention(cuda, dtype, D, A, M):
     rs = np.random.RandomState(1)
-    B, M, A = 2, 799, 32
+    B = 2
     args = [_mk(rs, B, M, D).to(dtype), _mk(rs, B, M, 3), _mk(rs, B, A, D).to(dtype),
             _mk(rs, B, A, D).to(dtype), _mk(rs, A, 3)]
     s = 1 / math.sqrt(D)
@@ -364,6 +398,8 @@ def _attn_mlps(rs, D):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,D,K", [(799, 128, 32), (799, 256, 32), (300, 512, 32),
+                                   (65, 256, 3), (65, 256, 24), (1, 256, 48), (65, 256, 64),
+                                   (65, 1024, 24),
                                    (150, 1024, 32), (77, 64, 8), (50, 1024, 16)])
 def test_fused_vector_attention(cuda, dtype, M, D, K):
     """K8 against its plain version on gathered k / v / delta."""
@@ -400,7 +436,9 @@ def test_scrambled_merge_gather(cuda, dtype, C, pattern):
 
 
 def test_shapes_the_new_wrappers_reject(cuda):
-    """K5: rows that are no multiple of 16 bytes; K1 / K2 / K8: D above 1024, D % 4, 32 % K."""
+    """K5: rows that are no multiple of 16 bytes; K1 / K2 / K8: D above 1024 and
+    D % 4 raise, while neighbour counts that do not divide 32 (3, 64) run and
+    match the plain versions."""
     rs = np.random.RandomState(3)
     n_val = torch.tensor([1, 2], device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
@@ -411,16 +449,19 @@ def test_shapes_the_new_wrappers_reject(cuda):
     for D, K in ((1028, 8), (30, 8), (64, 3), (64, 64)):
         fcd, fcg = _attn_mlps(rs, D)
         args = [_mk(rs, 1, 5, D), _mk(rs, 1, 5, K, D), _mk(rs, 1, 5, K, D), _mk(rs, 1, 5, K, 3)]
-        with pytest.raises(ValueError, match="CUDA kernel takes"):
-            vector_attn.fused_vector_attention(*[t.to(cuda) for t in args],
-                                               [t.to(cuda) for t in fcd],
-                                               [t.to(cuda) for t in fcg])
-        xyz = _mk(rs, 1, 80, 3).to(cuda)
-        with pytest.raises(ValueError, match="CUDA kernel takes"):
-            knn_attn.fused_knn_vector_attention(
-                _mk(rs, 1, 80, D).to(cuda), xyz, xyz, _mk(rs, 1, 80, D).to(cuda),
-                _mk(rs, D, D).to(cuda), _mk(rs, D, D).to(cuda), [t.to(cuda) for t in fcd],
-                [t.to(cuda) for t in fcg], n_neighbor=K)
+        xyz = _mk(rs, 1, 80, 3)
+        k1_args = [_mk(rs, 1, 80, D), xyz, xyz, _mk(rs, 1, 80, D), _mk(rs, D, D), _mk(rs, D, D)]
+        dev = lambda ts: [t.to(cuda) for t in ts]
+        k8 = lambda a, d, g: vector_attn.fused_vector_attention(*a, d, g)
+        k1 = lambda a, d, g: knn_attn.fused_knn_vector_attention(*a, d, g, n_neighbor=K)
+        for fn, a in ((k8, args), (k1, k1_args)):
+            if D % 4 or D > 1024:
+                with pytest.raises(ValueError, match="CUDA kernel takes"):
+                    fn(dev(a), dev(fcd), dev(fcg))
+            else:
+                got = fn(dev(a), dev(fcd), dev(fcg))
+                torch.cuda.synchronize()
+                _close(got, fn(a, fcd, fcg), torch.float32)
     q = _mk(rs, 1, 5, 32).to(cuda).requires_grad_()
     fcd, fcg = _attn_mlps(rs, 32)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -537,11 +578,18 @@ def test_knn_vector_attention_bucketed_refuses(cuda):
     args, fcd, fcg = _bucketed_case(rs, 1, 40, 512, 32, 32, torch.float32, False)
     dev = lambda ts: [t.to(cuda) for t in ts]
     for kw, err in ((dict(bucket_size=48), ValueError), (dict(n_cand=17), ValueError),
-                    (dict(n_neighbor=64, n_cand=1), ValueError),
-                    (dict(n_neighbor=12), ValueError)):      # 32 % K != 0: the attention kernel
+                    (dict(n_neighbor=64, n_cand=1), ValueError)):
         with pytest.raises(err):
             knn_attn.fused_knn_vector_attention_bucketed(
                 *dev(args), dev(fcd), dev(fcg), **{**dict(n_neighbor=8, bucket_size=32), **kw})
+    # a neighbour count that does not divide 32 runs (the attention core takes any K)
+    kw = dict(n_neighbor=12, bucket_size=32)
+    got, margins = knn_attn.fused_knn_vector_attention_bucketed(*dev(args), dev(fcd), dev(fcg),
+                                                                **kw)
+    want, w_margins = knn_attn.fused_knn_vector_attention_bucketed(*args, fcd, fcg, **kw)
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)
+    assert torch.equal(margins.cpu() >= 0, w_margins >= 0)
     q = args[0].to(cuda).requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         knn_attn.fused_knn_vector_attention_bucketed(q, *dev(args[1:]), dev(fcd), dev(fcg),
@@ -633,13 +681,15 @@ def test_knn_vector_attention_trainable_at_the_tiers_widths(cuda, dtype, D):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [128, 512, 1024])
+@pytest.mark.parametrize("D", [128, 512, 1024, 36])
 def test_scatter_add_rows_at_the_tiers_widths(cuda, dtype, D):
-    """K7 with D-wide rows, into 799 (self) and 4096 (cross) rows."""
+    """K7 with D-wide rows, into 799 (self), 4096 (cross) and 9000 rows (more
+    than one segment's worth of rows); D = 36 is no multiple of 16 bytes in
+    bfloat16 (one column a lane)."""
     rs = np.random.RandomState(D + 7)
     B, M, K = 2, 200, 32
     g = _mk(rs, B, M, K, D).to(dtype)
-    for n_rows in (799, 4096):
+    for n_rows in (799, 4096, 9000):
         idx = torch.from_numpy(rs.randint(0, n_rows // 8, (B, M, K)).astype(np.int32) * 8)
         want = scatter.plain_scatter_add_rows(g, idx, n_rows)
         got = scatter.scatter_add_rows(g.to(cuda), idx.to(cuda), n_rows)

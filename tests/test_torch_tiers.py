@@ -365,12 +365,17 @@ def test_anchor_vector_attention_at_wide_d_matches_pallas(D):
 
 
 def test_attention_wrappers_state_their_widths():
-    """What csrc/knn_attn.cu takes, checked before any launch."""
-    for D, K in ((128, 32), (256, 32), (512, 32), (1024, 32), (64, 8), (1024, 16)):
-        vector_attn.check_attention_shapes(D, K)
-    for D, K in ((1028, 32), (2048, 32), (30, 8), (64, 3), (64, 64), (0, 8)):
+    """What csrc/knn_attn.cu takes, checked before any launch: D a multiple of 4
+    up to 1024, any neighbour count (the rows a bf16 tile of 128 holds: floor(128
+    / K) queries, or ceil(K / 128) tiles a query)."""
+    for D in (128, 256, 512, 1024, 64, 32, 4):
+        vector_attn.check_attention_shapes(D)
+    for D in (1028, 2048, 30, 0):
         with pytest.raises(ValueError, match="CUDA kernel takes"):
-            vector_attn.check_attention_shapes(D, K)
+            vector_attn.check_attention_shapes(D)
+    assert vector_attn.core_rows(2, 799, 32) == 2 * 200 * 128  # 4 queries a tile
+    assert vector_attn.core_rows(1, 65, 24) == 13 * 128        # 5 queries a tile
+    assert vector_attn.core_rows(1, 3, 200) == 3 * 2 * 128     # 2 tiles a query
     # three [rows][D] float32 buffers and the softmax state fit a block's 227 KB:
     # 32 rows up to D = 256 and 16 above (VaBlock in csrc/knn_attn.cu)
     for D in (128, 256, 512, 1024):
