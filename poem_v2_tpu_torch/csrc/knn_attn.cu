@@ -55,13 +55,13 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "knn_core.cuh"
 
 namespace poem {
 
 constexpr int SEL_WARPS = 4;
 constexpr int PACK_MAX = 4096;
 constexpr int VA_THREADS = 256;
-enum { VA_KNN = 0, VA_ANCHOR = 1, VA_GATHERED = 2 };
 
 template <bool PACKED>
 __global__ void knn_select_kernel(const float* __restrict__ qxyz, const float* __restrict__ ptxyz,
@@ -405,42 +405,11 @@ cudaError_t launch_vector_attn(const void* q, const void* qxyz, const void* cxyz
 //   kept as v + pos beside x, not recomputed; t1 never leaves shared memory.
 // The chain needs D a multiple of 128 and 16-byte aligned tensors; the
 // wrapper pads other widths with zero channels.
-constexpr int CR = 128;  // rows of a block: two warpgroups of 64
-constexpr int CK = 64;   // reduced columns a stage: one 128-byte swizzled row
 constexpr int CNS = 128;  // output columns a block
 constexpr int CORE_THREADS = 256;
 enum { EPI_KV = 0, EPI_POS = 1, EPI_RELU = 2, EPI_SOFTMAX = 3 };
 
-// The row layout of the intermediates.
-struct RowMap {
-  int M, K, QB, T, tiles;  // QB queries a tile (K <= 128), T tiles a query (K > 128), tiles a sample
-  __host__ __device__ RowMap(int M_, int K_) : M(M_), K(K_) {
-    QB = K <= CR ? CR / K : 1;
-    T = K <= CR ? 1 : (K + CR - 1) / CR;
-    tiles = K <= CR ? (M + QB - 1) / QB : M * T;
-  }
-  // row r -> sample b, query m, neighbour j (clamped into range); false for a spare row
-  __device__ __forceinline__ bool at(long long r, int& b, int& m, int& j) const {
-    const long long tile_all = r / CR;
-    const int i = (int)(r % CR);
-    b = (int)(tile_all / tiles);
-    const int tile = (int)(tile_all % tiles);
-    bool valid;
-    if (K <= CR) {
-      const int qi = i / K;
-      m = tile * QB + qi;
-      j = i % K;
-      valid = qi < QB && m < M;
-    } else {
-      m = tile / T;
-      j = (tile % T) * CR + i;
-      valid = j < K;
-    }
-    m = min(m, M - 1);
-    j = min(j, K - 1);
-    return valid;
-  }
-};
+// The row layout of the intermediates: RowMap (knn_core.cuh).
 
 // Shared memory of a block: the ring, its barriers (and the softmax pass's
 // v + pos barrier), then for the softmax pass the g tile [128][NS + 8] and the
@@ -486,27 +455,6 @@ struct CoreArgs {
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) { return hop::pack_bf16(lo, hi); }
 
-// delta of row `row`, rounded to bf16: q_xyz - c_xyz[src] (K1, K2) or given (K8)
-__device__ __forceinline__ void row_delta(const RowMap& rm, long long row, int mode, int N,
-                                          const float* __restrict__ qxyz,
-                                          const float* __restrict__ cxyz,
-                                          const int* __restrict__ idx,
-                                          const __nv_bfloat16* __restrict__ delta, float (&d)[3]) {
-  int b, m, j;
-  rm.at(row, b, m, j);
-  if (mode == VA_GATHERED) {
-    const __nv_bfloat16* dp = delta + (((size_t)b * rm.M + m) * rm.K + j) * 3;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) d[a] = __bfloat162float(dp[a]);
-  } else {
-    const int src = mode == VA_ANCHOR ? j : idx[((size_t)b * rm.M + m) * rm.K + j];
-    const float* qp = qxyz + ((size_t)b * rm.M + m) * 3;
-    const float* cp = cxyz + ((size_t)b * N + src) * 3;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) d[a] = round_to<__nv_bfloat16>(qp[a] - cp[a]);
-  }
-}
-
 // 8 channels c0 .. c0 + 7 of t1 = relu(delta W1 + b1), packed as bf16
 __device__ __forceinline__ uint4 t1_chunk(const float (&d)[3], const __nv_bfloat16* __restrict__ w1,
                                           const __nv_bfloat16* __restrict__ b1, int D, int c0) {
@@ -523,9 +471,7 @@ __device__ __forceinline__ uint4 t1_chunk(const float (&d)[3], const __nv_bfloat
   for (int i = 0; i < 4; ++i) {
     const float2 a0 = __bfloat1622float2(w0p[i]), a1 = __bfloat1622float2(w1p[i]);
     const float2 a2 = __bfloat1622float2(w2p[i]), bb = __bfloat1622float2(bp[i]);
-    const float h0 = fmaf(d[2], a2.x, fmaf(d[1], a1.x, d[0] * a0.x)) + bb.x;
-    const float h1 = fmaf(d[2], a2.y, fmaf(d[1], a1.y, d[0] * a0.y)) + bb.y;
-    packed[i] = bf16x2(fmaxf(h0, 0.0f), fmaxf(h1, 0.0f));
+    packed[i] = bf16x2(t1_value(d, a0.x, a1.x, a2.x, bb.x), t1_value(d, a0.y, a1.y, a2.y, bb.y));
   }
   return make_uint4(packed[0], packed[1], packed[2], packed[3]);
 }
@@ -597,8 +543,8 @@ __global__ void __launch_bounds__(CORE_THREADS, CoreCfg<NS, EPI>::BLOCKS_PER_SM)
   const int gen_row = 64 * wg + (t % 128) / 2, gen_c0 = 4 * (t % 2);
   float gen_d[3] = {0.0f, 0.0f, 0.0f};
   if (GEN_A)
-    row_delta(rm, row0_of(0) + gen_row, args.mode, args.N, args.qxyz, args.cxyz, args.idx,
-              args.delta, gen_d);
+    row_delta<__nv_bfloat16>(rm, row0_of(0) + gen_row, args.mode, args.N, args.qxyz, args.cxyz,
+                             args.idx, args.delta, gen_d);
 
   auto fill = [&](int it) {
     const int s = it % CNST, tt = it / nk, kc = it % nk;

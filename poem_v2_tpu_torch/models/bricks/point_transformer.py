@@ -4,7 +4,10 @@
 With ``use_fused_knn`` (the default, the serving path) the attention core
 runs in eval in kernel K1 (exact KNN neighbourhoods) or K2 (fixed anchors,
 block 0); in training (``module.train()``) the KNN neighbourhoods run K6,
-whose backward scatters by K7, and the anchors take the gathered path.
+whose backward is K6b (the kernels of ``csrc/knn_attn_bwd.cu``, then K7's
+scatter to the cloud), and the anchors take the gathered path: autograd
+through :func:`~poem_v2_tpu_torch.ops.vector_attn.vector_attention_reference`
+on (B, M, A, D) tensors.
 
 The gathered path (``use_fused_knn=False``, and the anchors in training)
 is the JAX blocks' un-fused one: exact ``knn_points`` (lowest index wins

@@ -1,4 +1,4 @@
-"""Fused exact-KNN and fixed-anchor vector attention (kernels K1, K2, K6).
+"""Fused exact-KNN and fixed-anchor vector attention (kernels K1, K2, K6, K6b).
 
 Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
 
@@ -7,8 +7,12 @@ Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
 * :func:`fused_anchor_vector_attention` <- ``fused_anchor_vector_attention``
   (the same attention against fixed, pre-projected anchors);
 * :func:`knn_vector_attention_trainable` <- ``knn_vector_attention_trainable``
-  (K6: K1's forward with its indices saved; the backward is the gradient of
-  :func:`attention_from_idx`, whose feature gather scatters back by K7);
+  (K6: K1's forward with its indices saved) and its backward
+  :func:`knn_vector_attention_trainable_bwd` <- ``_trainable_bwd`` (K6b: on
+  the card the hand-written chain of ``csrc/knn_attn_bwd.cu``, which reruns
+  the forward's products and writes the backward out, then K7's scatter; its
+  plain version is the gradient of :func:`attention_from_idx`, as the JAX
+  backward is);
 * :func:`fused_knn_vector_attention_bucketed` <-
   ``fused_knn_vector_attention_bucketed`` (K9: the exact K-NN restricted to
   the nearest k-d buckets of a static cloud, with a per-block exactness
@@ -17,10 +21,10 @@ Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
   it is a function only: no model path calls it.
 
 Each wrapper takes CPU tensors to its plain PyTorch version and CUDA
-tensors to the hand-written kernel in ``csrc/knn_attn.cu``; there is no
-fallback from one to the other. ``<wrapper>.launches`` counts kernel
-launches. K1 and K2 have no backward: on the card they raise when autograd
-would need one.
+tensors to the hand-written kernel in ``csrc/knn_attn.cu`` (K6b: in
+``csrc/knn_attn_bwd.cu``); there is no fallback from one to the other.
+``<wrapper>.launches`` counts kernel launches. K1 and K2 have no backward:
+on the card they raise when autograd would need one; K6's backward is K6b.
 
 Widths: the kernels take float32 or bfloat16 tensors with D a multiple of
 4 up to 1024 (the released tiers use 128, 256, 512 and 1024) and any
@@ -44,6 +48,7 @@ biases, the softmax and the (v + pos) aggregate stay float32.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -51,9 +56,10 @@ import torch
 from . import _lib
 from .points import index_points
 from .remat import kernel_outputs
-from .scatter import index_points_mxu
-from .vector_attn import (MODE_ANCHOR, MODE_KNN, _mm, check_attention_shapes, check_one_device,
-                          run_attention_core, vector_attention_plain, vector_attention_reference)
+from .scatter import index_points_mxu, scatter_add_rows
+from .vector_attn import (CORE_TILE, CORE_WIDTH, MODE_ANCHOR, MODE_KNN, _mm, _padded, _rounded,
+                          check_attention_shapes, check_one_device, core_rows, run_attention_core,
+                          vector_attention_plain, vector_attention_reference)
 
 PACKED_MAX_POINTS = 4096  # the packed keys keep the column in 12 bits
 
@@ -120,7 +126,9 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx):
     """The plain gather and vector attention at given (B, M, K) neighbour indices."""
     dt = q.dtype
-    x_g = _gather(x_full.to(dt), idx)
+    # gathered as float32 (the same values): the gather's backward then sums
+    # each point's neighbour gradients in float32
+    x_g = _gather(_rounded(x_full, dt), idx)
     nn_xyz = _gather(pt_xyz.float(), idx)
     delta = query_xyz.float()[:, :, None] - nn_xyz
     return vector_attention_plain(
@@ -263,6 +271,113 @@ def attention_from_idx(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma,
             [p.to(dt) for p in fc_gamma])
 
 
+def plain_knn_vector_attention_trainable_bwd(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta,
+                                             fc_gamma, idx, dout, needs=None):
+    """Plain PyTorch version of :func:`knn_vector_attention_trainable_bwd`:
+    autograd through :func:`attention_from_idx` at the saved indices, in q's
+    dtype, as the JAX backward differentiates ``_attention_from_idx``."""
+    inputs = [q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma]
+    needs = (True,) * len(inputs) if needs is None else needs
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = attention_from_idx(*leaves[:6], leaves[6:10], leaves[10:], idx)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, dout.to(out.dtype), allow_unused=True))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+def knn_vector_attention_trainable_bwd(
+    q, query_xyz, pt_xyz, x_full, wk, wv,
+    fc_delta: Sequence[torch.Tensor],
+    fc_gamma: Sequence[torch.Tensor],
+    idx: torch.Tensor,   # (B, M, K) the forward's neighbour indices
+    dout: torch.Tensor,  # (B, M, D) cotangent of the output
+    needs=None,          # 14 flags: which gradients to return (None: all)
+):
+    """The gradients of :func:`knn_vector_attention_trainable`'s 14 inputs
+    (q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta's four, fc_gamma's four)
+    at the neighbours ``idx`` and cotangent ``dout`` (K6b), each in its
+    input's dtype, None where ``needs`` says it is not wanted.
+
+    CPU tensors take the plain version (autograd through
+    :func:`attention_from_idx`); CUDA tensors the chain of
+    ``csrc/knn_attn_bwd.cu`` in q's dtype (weights cast to it, as the
+    forward casts them): the forward's products rerun, then the backward's
+    three, with the softmax backward in closed form, every row buffer in
+    the forward chain's row layout; then K7 scatters the rows' [dk | dv |
+    -ddelta] to the cloud points, where the products per cloud point and the
+    weight gradients are matrix products of the buffers the kernels wrote."""
+    needs = (True,) * 14 if needs is None else tuple(needs)
+    if q.device.type == "cpu":
+        return plain_knn_vector_attention_trainable_bwd(q, query_xyz, pt_xyz, x_full, wk, wv,
+                                                        fc_delta, fc_gamma, idx, dout, needs)
+    check_one_device(q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma, idx, dout)
+    B, M, D = q.shape
+    N, K = pt_xyz.shape[1], idx.shape[-1]
+    check_attention_shapes(D)
+    if tuple(dout.shape) != (B, M, D) or tuple(idx.shape) != (B, M, K):
+        raise ValueError(f"dout must be {(B, M, D)} and idx (B, M, K), got "
+                         f"{tuple(dout.shape)}, {tuple(idx.shape)}")
+    dt, dev, f32 = q.dtype, q.device, torch.float32
+    Dp = -(-D // CORE_WIDTH) * CORE_WIDTH
+    pad = Dp - D
+    w1, b1, w2, b2 = fc_delta
+    g0, c0, g1, c1 = fc_gamma
+    qc, xc, doc, w1c, b1c, b2c, c0c, c1c = (_padded(t, dt, pad) for t in
+                                            (q, x_full, dout, w1, b1, b2, c0, c1))
+    w2c, g0c, g1c = (_padded(w, dt, pad, both=True) for w in (w2, g0, g1))
+    wkv = torch.cat([_padded(wk, dt, pad, both=True), _padded(wv, dt, pad, both=True)], 1)
+    qxyz = query_xyz.float().contiguous()
+    cxyz = pt_xyz.float().contiguous()
+    ix = idx.to(torch.int32).contiguous()
+    rows = core_rows(B, M, K)
+    E, SW = rows // B, 2 * Dp + 4
+    kv = torch.empty((B, N, 2 * Dp), dtype=f32, device=dev)
+    t1, x, h, dg, da, dpos, dt1 = (torch.empty((rows, Dp), dtype=dt, device=dev)
+                                   for _ in range(7))
+    vp = torch.empty((rows, Dp), dtype=f32, device=dev)
+    s = torch.empty((rows, SW), dtype=f32, device=dev)
+    dq = torch.empty((B, M, Dp), dtype=f32, device=dev)
+    # the row tiles' column sums of dg, da, dpos and dt1 (the bias gradients)
+    bsum = torch.empty((4, Dp, rows // CORE_TILE), dtype=f32, device=dev)
+    ddp = torch.empty((Dp // CORE_WIDTH, rows, 4), dtype=f32, device=dev)
+    delta = torch.empty((rows, 4), dtype=dt, device=dev)
+    ridx = torch.empty((rows,), dtype=torch.int32, device=dev)
+    dqxyz = torch.empty((B, M, 3), dtype=f32, device=dev)
+    _lib.lib().call("poem_knn_attention_bwd", _lib.dtype_code(q), *(t.data_ptr() for t in (
+        qc, qxyz, cxyz, ix, xc, wkv, w1c, b1c, w2c, b2c, g0c, c0c, g1c, c1c, doc, kv, t1, x, h,
+        vp, dg, da, dpos, dt1, s, dq, bsum, ddp, delta, ridx, dqxyz)), B, M, N, Dp, K,
+        1.0 / math.sqrt(D), _lib.stream_ptr(q))
+    knn_vector_attention_trainable_bwd.launches += 1
+    # the rows' [dk | dv | -ddelta] summed per cloud point, (B, N, 2 Dp + 4) float32
+    sc = scatter_add_rows(s.view(B, 1, E, SW), ridx.view(B, 1, E), N)
+    skv = sc[..., :2 * Dp].reshape(B * N, 2 * Dp).to(dt)
+    grads = [None] * 14
+    if needs[0]:
+        grads[0] = dq[..., :D]
+    if needs[1]:
+        grads[1] = dqxyz
+    if needs[2]:
+        grads[2] = sc[..., 2 * Dp:2 * Dp + 3]
+    if needs[3]:  # dx_full = dk Wk^T + dv Wv^T, once a cloud point
+        grads[3] = (skv @ wkv.t()).reshape(B, N, Dp)[..., :D]
+    if needs[4] or needs[5]:
+        dwkv = xc.reshape(B * N, Dp).t() @ skv
+        grads[4], grads[5] = dwkv[:D, :D], dwkv[:D, Dp:Dp + D]
+    # (W1, b1), (W2, b2), (G0, c0), (G1, c1): a^T d, and the column sums of d
+    bias = bsum.sum(-1)[:, :D]  # dc1, dc0, db2, db1
+    for i, (a, d) in enumerate(((delta[:, :3], dt1), (t1, dpos), (x, da), (h, dg))):
+        if needs[6 + 2 * i]:
+            grads[6 + 2 * i] = (a.t() @ d)[:, :D] if i == 0 else (a.t() @ d)[:D, :D]
+        if needs[7 + 2 * i]:
+            grads[7 + 2 * i] = bias[3 - i]
+    inputs = (q, query_xyz, pt_xyz, x_full, wk, wv, *fc_delta, *fc_gamma)
+    return tuple(None if g is None else g.to(t.dtype) for g, t in zip(grads, inputs))
+
+
+knn_vector_attention_trainable_bwd.launches = 0
+
+
 class _KnnVectorAttentionTrainable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, n_neighbor, q, query_xyz, pt_xyz, x_full, wk, wv, *mlps):
@@ -283,14 +398,8 @@ class _KnnVectorAttentionTrainable(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         *inputs, idx = ctx.saved_tensors
-        needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-            out = attention_from_idx(*leaves[:6], leaves[6:10], leaves[10:], idx)
-            wanted = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, dout.to(out.dtype),
-                                             allow_unused=True))
-        return (None, *(next(grads) if t.requires_grad else None for t in leaves))
+        return (None, *knn_vector_attention_trainable_bwd(
+            *inputs[:6], inputs[6:10], inputs[10:], idx, dout, needs=ctx.needs_input_grad[1:]))
 
 
 def knn_vector_attention_trainable(
@@ -307,9 +416,10 @@ def knn_vector_attention_trainable(
     """Training-path exact-KNN vector attention (K6); (B, M, D).
 
     Forward: K1 with ``return_idx`` (the plain version on the CPU), which
-    selects exactly the neighbours eval selects. Backward: autograd through
-    :func:`attention_from_idx` at the saved indices, so the (B, M, N)
-    distances are never recomputed."""
+    selects exactly the neighbours eval selects. Backward:
+    :func:`knn_vector_attention_trainable_bwd` at the saved indices (K6b on
+    the card, autograd through :func:`attention_from_idx` on the CPU), so the
+    (B, M, N) distances are never recomputed."""
     return _KnnVectorAttentionTrainable.apply(n_neighbor, q, query_xyz, pt_xyz, x_full, wk, wv,
                                               *fc_delta, *fc_gamma)
 

@@ -64,9 +64,21 @@ def vector_attention_reference(
         return (attn * (v_g + pos)).sum(-2)
 
 
+def _rounded(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """t rounded to ``dt``, as float32. Under autograd the rounding passes the
+    gradient through unchanged: the gradient of a plain version is then the
+    float32 gradient at its rounded values (what K6b computes), not one
+    rounded to ``dt`` at every cast. The values are the same either way."""
+    r = t.to(dt).float()
+    if t.dtype == dt or not (torch.is_grad_enabled() and t.requires_grad):
+        return r
+    t = t.float()
+    return t + (r - t).detach()  # exactly r: r - t is exact, r representable
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """x @ w with both operands rounded to ``dt``, accumulated in float32."""
-    return x.to(dt).float() @ w.to(dt).float()
+    return _rounded(x, dt) @ _rounded(w, dt)
 
 
 def vector_attention_plain(
@@ -82,11 +94,11 @@ def vector_attention_plain(
     dt = q.dtype
     w1, b1, w2, b2 = fc_delta
     g0, c0, g1, c1 = fc_gamma
-    t1 = torch.relu(_mm(delta, w1, dt) + b1.to(dt).float())
-    pos = _mm(t1, w2, dt) + b2.to(dt).float()
+    t1 = torch.relu(_mm(delta, w1, dt) + _rounded(b1, dt))
+    pos = _mm(t1, w2, dt) + _rounded(b2, dt)
     x = q.float()[:, :, None] - k + pos
-    h = torch.relu(_mm(x, g0, dt) + c0.to(dt).float())
-    g = (_mm(h, g1, dt) + c1.to(dt).float()) * (1.0 / math.sqrt(q.shape[-1]))
+    h = torch.relu(_mm(x, g0, dt) + _rounded(c0, dt))
+    g = (_mm(h, g1, dt) + _rounded(c1, dt)) * (1.0 / math.sqrt(q.shape[-1]))
     attn = torch.softmax(g, dim=-2)
     return torch.sum(attn * (v + pos), dim=-2).to(dt)
 
@@ -109,6 +121,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _padded(t: torch.Tensor, dt: torch.dtype, pad: int, both: bool = False) -> torch.Tensor:
+    """t in dtype ``dt`` with ``pad`` zero channels after its last dimension
+    (and its first too, for a square weight, with ``both``), 16-byte aligned."""
+    t = t.to(dt)
+    if pad:
+        t = F.pad(t, (0, pad, 0, pad) if both else (0, pad))
+    return _aligned(t)
+
+
 def run_attention_core(mode: int, q, qxyz, cxyz, idx, xk, va, delta, wk, wv, fc_delta, fc_gamma,
                        N: int, K: int) -> torch.Tensor:
     """Launch the attention core of ``csrc/knn_attn.cu`` on CUDA tensors;
@@ -123,17 +144,12 @@ def run_attention_core(mode: int, q, qxyz, cxyz, idx, xk, va, delta, wk, wv, fc_
     dt = q.dtype
     code = _lib.dtype_code(q)
     ws = [*(() if wk is None else (wk, wv)), *fc_delta, *fc_gamma]
-    feats = [q, xk, va]
-    Dp = D
-    if dt == torch.bfloat16 and D % CORE_WIDTH:
-        # zero channels: every product's sum and every real channel stay as they were
-        Dp = -(-D // CORE_WIDTH) * CORE_WIDTH
-        pad = Dp - D
-        feats = [None if t is None else F.pad(t, (0, pad)) for t in feats]
-        ws = [F.pad(w, (0, pad, 0, pad)) if w.dim() == 2 and w.shape[0] == D else
-              F.pad(w, (0, pad)) for w in ws]
-    qc, kc, vc = (None if t is None else _aligned(t.to(dt)) for t in feats)
-    ws = [_aligned(w.to(dt)) for w in ws]
+    # bf16: zero channels up to a multiple of 128; every product's sum and every
+    # real channel stay as they were
+    Dp = -(-D // CORE_WIDTH) * CORE_WIDTH if dt == torch.bfloat16 else D
+    pad = Dp - D
+    qc, kc, vc = (None if t is None else _padded(t, dt, pad) for t in (q, xk, va))
+    ws = [_padded(w, dt, pad, both=w.dim() == 2 and w.shape[0] == D) for w in ws]
     if wk is None:
         ws = [None, None, *ws]
     dl = None if delta is None else delta.to(dt).contiguous()

@@ -302,22 +302,60 @@ def test_scatter_add_rows(cuda, dtype, n_rows, lo, hi):
     _close(got, want, torch.float32)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_knn_vector_attention_trainable_grads(cuda, dtype):
-    """K6: value and the gradients of all 14 inputs against the same Function
-    on the CPU (the plain K1 forward, autograd through the plain recompute,
-    the plain K7), which in float32 is autograd through K1's plain version.
-    fc_gamma's output bias shifts every neighbour of a channel alike, so its
-    exact gradient is 0: it is held to the scale of g1's gradient instead."""
-    rs = np.random.RandomState(9)
-    B, M, N, D, K = 2, 150, 600, 64, 16
+def _k6_args(rs, B, M, N, D, dtype, self_attn=False):
+    """K6's 14 inputs (features in ``dtype``, xyz and weights float32) and a
+    cotangent in ``dtype``; self attention: one cloud, the queries' points."""
     s = 1 / math.sqrt(D)
-    args = [_mk(rs, B, M, D), _mk(rs, B, M, 3), _mk(rs, B, N, 3), _mk(rs, B, N, D),
+    qxyz = _mk(rs, B, M, 3)
+    pxyz, n = (qxyz, M) if self_attn else (_mk(rs, B, N, 3), N)
+    args = [_mk(rs, B, M, D).to(dtype), qxyz, pxyz, _mk(rs, B, n, D).to(dtype),
             _mk(rs, D, D, scale=s), _mk(rs, D, D, scale=s),
             _mk(rs, 3, D), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1),
             _mk(rs, D, D, scale=s), _mk(rs, D, scale=0.1), _mk(rs, D, D, scale=s),
             _mk(rs, D, scale=0.1)]
-    args = [a.to(dtype) if i in (0, 3) else a for i, a in enumerate(args)]
+    return args, _mk(rs, B, M, D).to(dtype)
+
+
+def _peak(grads, i):
+    # fc_gamma's output bias shifts every neighbour of a channel alike: its exact
+    # gradient is 0, so it is held to the scale of g1's gradient instead
+    return float(grads[12 if i == 13 else i].float().abs().max())
+
+
+# K6b's bf16 gradients: against a float32 autograd of K6's plain forward (K1's
+# plain version, its roundings to bf16 passed straight through) on the same
+# inputs, within the larger of the bf16 recompute's error (the backward K6b
+# replaced, every operation in bf16) and this share of the peak
+K6B_BF16_REL = 2e-2
+
+
+def _hold_bf16_grads(got, args, idx, dout, plain):
+    """``got`` (bf16 run) against the float32 gradients of K6's plain forward
+    at ``args``, each within the larger of the bf16 ``plain`` backward's error
+    and K6B_BF16_REL of its peak."""
+    leaves = [a.detach().requires_grad_() for a in args]
+    out = knn_attn.plain_fused_knn_vector_attention(
+        *leaves[:6], leaves[6:10], leaves[10:], n_neighbor=idx.shape[-1], neighbor_idx=idx)
+    ref = torch.autograd.grad(out, leaves, dout.to(out.dtype))
+    rec = plain(args, idx, dout)
+    for i, (g, r, w) in enumerate(zip(got, rec, ref)):
+        g, r, w = g.float().cpu(), r.float().cpu(), w.float().cpu()
+        lim = max(float((r - w).abs().max()), K6B_BF16_REL * _peak(ref, i))
+        assert torch.isfinite(g).all() and float((g - w).abs().max()) <= lim, i
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_knn_vector_attention_trainable_grads(cuda, dtype):
+    """K6: value and the gradients of all 14 inputs against the same Function
+    on the CPU (the plain K1 forward, autograd through the plain recompute,
+    the plain K7). On the card the backward is K6b: in float32 the two differ
+    by summation order; in bf16 K6b computes in float32 from bf16 operands
+    while the CPU's recompute runs in bf16, so the gradients are held against
+    the float32 plain version at the same bf16-rounded inputs, as
+    ``_hold_bf16_grads`` says."""
+    rs = np.random.RandomState(9)
+    B, M, N, D, K = 2, 150, 600, 64, 16
+    args, _ = _k6_args(rs, B, M, N, D, dtype)
     ct = _mk(rs, B, M, D)
 
     def run(ts):
@@ -329,10 +367,78 @@ def test_knn_vector_attention_trainable_grads(cuda, dtype):
     got, gg = run([a.to(cuda) for a in args])
     torch.cuda.synchronize()
     _close(got, want, dtype)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}[dtype]
-    for i, (g, w) in enumerate(zip(gg, gw)):
-        scale = float(gw[12 if i == 13 else i].float().abs().max())
-        assert float((g.float().cpu() - w.float()).abs().max()) <= tol * scale, i
+    if dtype == torch.float32:
+        for i, (g, w) in enumerate(zip(gg, gw)):
+            assert float((g.cpu() - w).abs().max()) <= 1e-4 * _peak(gw, i), i
+        return
+    with torch.no_grad():
+        idx = knn_attn.fused_knn_vector_attention(*args[:6], args[6:10], args[10:],
+                                                  n_neighbor=K, return_idx=True)[1]
+    plain = lambda ts, i, d: knn_attn.plain_knn_vector_attention_trainable_bwd(
+        *ts[:6], ts[6:10], ts[10:], i, d)
+    _hold_bf16_grads(gg, args, idx, ct.to(dtype), plain)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,D,self_attn", [
+    (65, 8, 256, False), (65, 24, 256, False), (65, 48, 128, False), (1, 24, 256, False),
+    (33, 32, 256, True), (20, 16, 512, True), (7, 130, 128, False), (9, 200, 256, False),
+    (5, 24, 1024, False), (40, 12, 64, False), (40, 12, 96, False)])
+def test_knn_attention_bwd_kernel(cuda, dtype, M, K, D, self_attn):
+    """K6b alone against its plain version (autograd through the recompute) on
+    the card, at the forward's indices: float32 within 1e-4 of each gradient's
+    peak, bf16 as ``_hold_bf16_grads`` says; two launches bit-identical. Any K
+    (130 and 200 span two tiles a query), spare rows (M no multiple of
+    floor(128 / K)), one query, self attention, and widths no multiple of 128
+    (64, 96: padded with zero channels)."""
+    rs = np.random.RandomState(M * K + D + self_attn)
+    args, dout = _k6_args(rs, 2, M, 600, D, dtype, self_attn)
+    dev = [a.to(cuda) for a in args]
+    dd = dout.to(cuda)
+    with torch.no_grad():
+        idx = knn_attn.fused_knn_vector_attention(*dev[:6], dev[6:10], dev[10:], n_neighbor=K,
+                                                  return_idx=True)[1]
+    bwd = lambda ts, i, d: knn_attn.knn_vector_attention_trainable_bwd(
+        *ts[:6], ts[6:10], ts[10:], i, d)
+    plain = lambda ts, i, d: knn_attn.plain_knn_vector_attention_trainable_bwd(
+        *ts[:6], ts[6:10], ts[10:], i, d)
+    before = knn_attn.knn_vector_attention_trainable_bwd.launches
+    got, again = bwd(dev, idx, dd), bwd(dev, idx, dd)
+    torch.cuda.synchronize()
+    assert knn_attn.knn_vector_attention_trainable_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(g.dtype == a.dtype and g.shape == a.shape for g, a in zip(got, dev))
+    if dtype == torch.float32:
+        want = plain(dev, idx, dd)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert float((g - w).abs().max()) <= 1e-4 * _peak(want, i), i
+    else:
+        _hold_bf16_grads(got, dev, idx, dd, plain)
+
+
+def test_knn_attention_bwd_runs_no_recompute_on_the_card(cuda, monkeypatch):
+    """The Function's backward on CUDA tensors launches K6b once and never
+    calls attention_from_idx; it returns no gradient the caller did not ask
+    for (a static cloud's xyz)."""
+    real = knn_attn.attention_from_idx
+
+    def guard(q, *rest):
+        assert not q.is_cuda, "attention_from_idx ran on CUDA tensors"
+        return real(q, *rest)
+
+    monkeypatch.setattr(knn_attn, "attention_from_idx", guard)
+    rs = np.random.RandomState(12)
+    args, dout = _k6_args(rs, 2, 65, 300, 128, torch.bfloat16)
+    ts = [a.to(cuda) for a in args]
+    leaves = [t if i == 2 else t.requires_grad_() for i, t in enumerate(ts)]
+    before = knn_attn.knn_vector_attention_trainable_bwd.launches
+    out = knn_attn.knn_vector_attention_trainable(*leaves[:6], leaves[6:10], leaves[10:],
+                                                  n_neighbor=32)
+    wanted = [t for t in leaves if t.requires_grad]
+    grads = torch.autograd.grad(out, wanted, dout.to(cuda))
+    torch.cuda.synchronize()
+    assert knn_attn.knn_vector_attention_trainable_bwd.launches == before + 1
+    assert len(grads) == 13 and all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
