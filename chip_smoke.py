@@ -11,9 +11,11 @@ non-zero:
    the card (CUDA events) beside the one PyTorch call that computes the
    same function, where there is one, and the least time the card could
    take (bytes over 3.35 TB/s or operations over the peak of the dtype):
-   K1-K5 and K8 at the serving path's batch-4 shapes (K5 bit-identical),
-   K1-K5 also at D = 128, 512 and 1024, the other tiers' widths (against
-   the plain version on the card); K3 also at batch 1 with a key count that
+   K1-K5 and K8 at the serving path's batch-4 shapes (K4 and K5
+   bit-identical), K1-K5 also at D = 128, 512 and 1024, the other tiers'
+   widths, and K4 at medium's batch 16 (against the plain version on the
+   card; K4 and K5 bit-identical there too), each time with its share of
+   the bound; K3 also at batch 1 with a key count that
    is no multiple of any tile (4100), and its row logsumexp against the plain
    one (1e-5 absolute) in every K3 case; K1's bound from its least work (three
    products a row, the k / v projection once a cloud point), the TPU kernel's
@@ -36,7 +38,8 @@ non-zero:
    bf16-rounded inputs, within the larger of the bfloat16 recompute's error
    and 2e-2 of the peak;
 1e. bf16 at the batch-4 shapes, call by call and replayed from a CUDA
-   graph: K1's selection alone, K1 (cross), K2, K8, and K7 (self, cross)
+   graph: K4 (also at D = 128, 512, 1024 and at batch 16, with its share
+   of the bound), K1's selection alone, K1 (cross), K2, K8, and K7 (self, cross)
    beside ``index_add_``; K6's forward + backward and K6b alone, self and
    cross, at D = 256 and 1024;
 1c. K9, the bucketed exact-KNN attention, on the real BPS cloud (4096 points
@@ -48,7 +51,10 @@ non-zero:
    must be some at 8 and most at 24), the share of blocks it certifies, and
    its time beside K1's;
 1d. K10, the five K-th-key variants at keys (16, 832, 4096), K = 32: each
-   equal to its plain version, then the benchmark itself
+   equal to its plain version, on the benchmark's keys and on keys whose rows
+   share a 20-bit prefix (there also scan32 and radix8 equal to np.partition,
+   and the five times beside ``torch.kthvalue`` and ``torch.topk``), then the
+   benchmark itself
    (``ops/select.py:bench_kth_key``, what ``scripts/torch_bench_radix_select.py``
    runs): scan32 = radix8 = np.partition, cur = bcast, and the five times
    beside ``torch.kthvalue`` and ``torch.topk``;
@@ -81,9 +87,10 @@ non-zero:
    and peak memory;
    (d) phase (b) for medium_MANO, with the pose and shape terms.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Needs no network and no
-JAX; without a CUDA device it fails before printing any result.
+The second-to-last line is a JSON object with one entry per kernel (``ms``
+call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph); the last
+line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
+without a CUDA device it fails before printing any result.
 """
 
 from __future__ import annotations
@@ -368,7 +375,7 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             args=(f(B * V, 16, 16, D), torch.from_numpy(rs.uniform(-1.2, 1.2, (B * V, N, 2))
                                                         .astype(np.float32))),
             kw={}, plain=bilinear.plain_grid_sample_points,
-            flops=8.0 * B * V * N * D, library=grid_sample),
+            flops=8.0 * B * V * N * D, library=grid_sample, exact=True),
         "scrambled_merge_gather": dict(
             kernel="scrambled_merge_gather", args=(f(B, V * N * D), n_val), kw=dict(V=V, C=D),
             plain=scramble.plain_scrambled_merge_gather, flops=0.0, library=gather,
@@ -407,11 +414,18 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             kernel="grid_sample_points_fused",
             args=(fw(B * V, 16, 16, Dw), cases["grid_sample_points_fused"]["args"][1]), kw={},
             plain=bilinear.plain_grid_sample_points, flops=8.0 * B * V * N * Dw,
-            library=grid_sample, plain_on_card=True)
+            library=grid_sample, plain_on_card=True, exact=True)
         cases[f"wide/scrambled_merge_gather/D{Dw}"] = dict(
             kernel="scrambled_merge_gather", args=(fw(B, V * N * Dw), n_val),
             kw=dict(V=V, C=Dw), plain=scramble.plain_scrambled_merge_gather, flops=0.0,
             library=gather, in_bytes=scramble_in_bytes, exact=True, plain_on_card=True)
+    # K4 at medium's batch 16: 128 maps
+    cases[f"wide/grid_sample_points_fused/B{4 * B}_D{D}"] = dict(
+        kernel="grid_sample_points_fused",
+        args=(f(4 * B * V, 16, 16, D), torch.from_numpy(
+            rs.uniform(-1.2, 1.2, (4 * B * V, N, 2)).astype(np.float32))), kw={},
+        plain=bilinear.plain_grid_sample_points, flops=32.0 * B * V * N * D,
+        library=grid_sample, plain_on_card=True, exact=True)
     # K3 where no tile divides the keys, one sample
     cases[f"ragged/dense_cross_attention/B1_N{N + 4}"] = dict(
         kernel="dense_cross_attention", args=(f(1, M, D), f(1, N + 4, D), f(1, N + 4, D)),
@@ -475,10 +489,10 @@ def phase_kernels(results, **shapes):
             if "library" in c:
                 library_ms = time_cuda(c["library"](dev_args, kw))
             b_ms, b_by = bound_ms(nbytes, c["flops"], dtype)
-            log(f"  {case} [{_dt(dtype)}] kernel {ms:.3f} ms, plain on card {plain_ms:.3f} ms, "
-                f"library call {'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
+            log(f"  {case} [{_dt(dtype)}] kernel {ms:.4f} ms, plain on card {plain_ms:.3f} ms, "
+                f"library call {'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
                 f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-                f"{c['flops'] / 1e9:.2f} GFLOP)")
+                f"{c['flops'] / 1e9:.2f} GFLOP): {100 * b_ms / ms:.1f}% of it")
             results.setdefault(case, {})[_dt(dtype)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by)
@@ -596,9 +610,11 @@ def time_graph(fn, iters: int = 20) -> float:
     return time_cuda(graph.replay, iters=3, warmup=1) / iters
 
 
-def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024):
-    """Phase 1e, bf16 at the batch-4 shapes: the selection alone, the core
+def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024,
+                      sampler_shapes=((4, 128), (4, 512), (4, 1024), (16, 256))):
+    """Phase 1e, bf16 at the batch-4 shapes: K4, the selection alone, the core
     (K1 cross, K2, K8) and K7 (self, cross) call by call and from a CUDA graph,
+    K4 also at the (batch, width) of ``sampler_shapes`` with its byte bound,
     and ``index_add_`` from a graph beside K7; then K6's forward + backward (the
     train path's call) and K6b alone, self and cross, at D and at ``wide``."""
     log(f"phase 1e: call by call and from a CUDA graph, bf16, B={B}, M={M}, N={N}, D={D}, K={K} "
@@ -615,7 +631,10 @@ def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024):
     ka, va = f(B, K, D), f(B, K, D)
     axyz = _to(_ball(rs, K), "cuda")
     kg, vg, dg = f(B, M, K, D), f(B, M, K, D), f(B, M, K, 3) * 0.4
+    maps = f(B * 8, 16, 16, D)  # K4: the 8 views' feature maps, 4096 BPS points each
+    grid = _to(torch.from_numpy(rs.uniform(-1.2, 1.2, (B * 8, N, 2)).astype(np.float32)), "cuda")
     calls = {
+        "grid_sample_points_fused": lambda: bilinear.grid_sample_points(maps, grid),
         "knn_select (K1's selection alone)": lambda: knn_attn.knn_select(qxyz, cloud, K),
         "fused_knn_vector_attention": lambda: knn_attn.fused_knn_vector_attention(
             q, qxyz, cloud, xf, wk, wv, fcd, fcg, n_neighbor=K),
@@ -645,6 +664,21 @@ def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024):
     with torch.inference_mode():
         for name, call in calls.items():
             time_both(name, call)
+        # K4 at the other tiers' widths and at medium's batch 16: call by call
+        # a narrow call's host time hides the kernel's
+        for name, (bs, width) in [("grid_sample_points_fused", (B, D))] + [
+                (f"grid_sample_points_fused/B{bs}_D{width}", (bs, width))
+                for bs, width in sampler_shapes]:
+            if name not in timed:
+                fm = f(bs * 8, 16, 16, width)
+                pts = _to(torch.from_numpy(rs.uniform(-1.2, 1.2, (bs * 8, N, 2))
+                                           .astype(np.float32)), "cuda")
+                time_both(name, lambda fm=fm, pts=pts: bilinear.grid_sample_points(fm, pts))
+            nbytes = bs * 8 * (16 * 16 * width * 2 + N * 2 * 4 + N * width * 2)
+            b_ms = bound_ms(nbytes, 8.0 * bs * 8 * N * width, torch.bfloat16)[0]
+            timed[name]["bound_ms"] = b_ms
+            log(f"  {name}: bound {b_ms:.4f} ms (bytes), from a CUDA graph "
+                f"{100 * b_ms / timed[name]['graph_ms']:.1f}% of it")
     for Dw in (D, wide):
         for case in ("self", "cross"):
             ts, dout = k6_train_inputs(rs, B, M, N, Dw, bf, self_attn=case == "self")
@@ -1098,6 +1132,28 @@ def phase_select(results, B=16, M=832, N=4096, K=32, block_q=64, chunk_j=16, dev
                                  f"in {int((got != want).sum())} rows")
         plain_ms[name] = time_cuda(plains[name], iters=2, warmup=0)
     log("  all five equal to their plain versions on the card (integers: tolerance 0)")
+    # adversarial keys: every key of a row shares a 20-bit prefix, so radix8's
+    # lists stay the whole row for five passes
+    pk_np = select.make_prefix_keys(2, B, M, N)
+    pkeys = _to(torch.from_numpy(pk_np), "cuda")
+    pcalls = select.variant_calls(pkeys, K, block_q, chunk_j)
+    pplains = select.variant_calls(pkeys, K, block_q, chunk_j, plain=True)
+    pkth = np.partition(pk_np, K - 1, axis=2)[..., K - 1:K]
+    for name in select.VARIANTS:
+        got = pcalls[name]()
+        if not torch.equal(got, pplains[name]()):
+            raise AssertionError(f"radix_select {name}: differs from its plain version on "
+                                 "keys with a shared prefix")
+        if name in ("scan32", "radix8") and not np.array_equal(got.cpu().numpy(), pkth):
+            raise AssertionError(f"radix_select {name}: differs from np.partition on keys "
+                                 "with a shared prefix")
+    prefix_ms = {name: time_cuda(pcalls[name], iters=20, warmup=2) for name in select.VARIANTS}
+    prefix_kth_ms = time_cuda(lambda: torch.kthvalue(pkeys, K, dim=-1, keepdim=True))
+    prefix_topk_ms = time_cuda(lambda: torch.topk(pkeys, K, dim=-1, largest=False, sorted=True))
+    log("  keys with a row-wide 20-bit prefix: all five equal to their plain versions, scan32 "
+        "and radix8 to np.partition; ms " + ", ".join(f"{n} {t:.4f}" for n, t in prefix_ms.items())
+        + f"; torch.kthvalue {prefix_kth_ms:.4f}, torch.topk {prefix_topk_ms:.4f}")
+    del pkeys, pcalls, pplains
     kth_ms = time_cuda(lambda: torch.kthvalue(keys, K, dim=-1, keepdim=True))
     topk_ms = time_cuda(lambda: torch.topk(keys, K, dim=-1, largest=False, sorted=True))
     same = torch.equal(torch.kthvalue(keys, K, dim=-1, keepdim=True).values, calls["scan32"]())
@@ -1114,11 +1170,13 @@ def phase_select(results, B=16, M=832, N=4096, K=32, block_q=64, chunk_j=16, dev
     log("  ms per variant (kernel / plain on card): "
         + ", ".join(f"{n} {bench['ms'][n]:.3f} / {plain_ms[n]:.3f}" for n in select.VARIANTS)
         + f"; library calls: torch.kthvalue {kth_ms:.3f} ms, torch.topk (k={K}) {topk_ms:.3f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by}: one read of the keys); fastest exact variant: {best}")
+        f"bound {b_ms:.4f} ms ({b_by}: one read of the keys); fastest exact variant: {best}, "
+        f"{100 * b_ms / bench['ms'][best]:.1f}% of the bound")
     results["radix_select"] = {"int32": dict(
         max_abs_err=0.0, ms=bench["ms"][best], plain_ms=plain_ms[best], library_ms=kth_ms,
         bound_ms=b_ms, bound_by=b_by, variant=best, variants_ms=bench["ms"],
-        variants_plain_ms=plain_ms, topk_ms=topk_ms)}
+        variants_plain_ms=plain_ms, topk_ms=topk_ms, prefix_keys_ms=prefix_ms,
+        prefix_keys_kthvalue_ms=prefix_kth_ms, prefix_keys_topk_ms=prefix_topk_ms)}
     return launches
 
 
@@ -1191,6 +1249,10 @@ def main() -> int:
             bound_by=max(bf, key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=None if None in library else sum(library),
         ))
+    # K4's call costs the host about as much as the kernel takes on the card,
+    # so beside its call-by-call ``ms`` it carries phase 1e's CUDA-graph time
+    k4 = next(e for e in entries if e["name"] == "grid_sample_points_fused")
+    k4["graph_ms"] = results["graph_times"]["grid_sample_points_fused"]["graph_ms"]
     missing = [e["name"] for e in entries if e["launches"] < 1]
     if missing:
         raise AssertionError(f"kernels that no path launched: {missing}")

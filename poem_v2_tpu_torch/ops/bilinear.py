@@ -6,14 +6,79 @@ padding_mode="zeros")`` on a flat point list and exact float32 tap
 weights, as the JAX package's ``grid_sample_points_matmul`` computes them.
 CPU tensors take :func:`plain_grid_sample_points`, CUDA tensors the kernel
 in ``csrc/bilinear.cu``, which has no backward (eval only: training samples
-with :func:`..sampling.grid_sample_points_matmul`).
+with :func:`..sampling.grid_sample_points_matmul`). The kernel's launch
+geometry is :func:`sampler_geometry`.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _lib
+
+SMEM_LIMIT = 232448          # shared memory a block may use on the H100
+SLICE_TARGET = 72 * 1024     # a block's shared memory when the map allows: three blocks an SM
+TABLE_BYTES = 256 * 32       # the tap table of 256 points: four weights, four cells
+SMS = 132
+BLOCKS_PER_SM = 8            # blocks launched an SM (4 and 16 read no better on the H100)
+
+
+class SamplerGeometry(NamedTuple):
+    """How ``csrc/bilinear.cu`` cuts one call: ``unit`` elements an access
+    (16 bytes' worth, or 1 where a row is not whole 16-byte units or the map
+    is not aligned), ``slice_units`` units a channel slice (``slices`` of
+    them, the last may be shorter), ``chunk_points`` points a block
+    (``chunks`` of them), ``tx`` lanes a point, ``direct`` (taps read from
+    device memory: the slice of one unit a cell does not fit) and the
+    block's shared-memory bytes."""
+    unit: int
+    slice_units: int
+    slices: int
+    chunk_points: int
+    chunks: int
+    tx: int
+    direct: bool
+    smem_bytes: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=256)
+def sampler_geometry(B: int, H: int, W: int, C: int, N: int, elem_bytes: int,
+                     aligned: bool = True) -> SamplerGeometry:
+    """The launch geometry of the sampler kernel for feat (B, H, W, C) and N
+    points a map.
+
+    A block stages one channel slice of its map, as many 16-byte units a cell
+    as keep it within ``SLICE_TARGET`` bytes (with the tap table), else as
+    many as fit ``SMEM_LIMIT``, else none (``direct``); slices are balanced.
+    Point chunks are cut so that about ``BLOCKS_PER_SM`` blocks an SM are
+    launched, and hold at least 256 points each. Cached: a request's host
+    time is of the order of the kernel's."""
+    vec = 16 // elem_bytes
+    unit = vec if aligned and C % vec == 0 else 1
+    units = C // unit
+    cell_bytes = H * W * unit * elem_bytes  # one unit of every cell
+    per_slice = (SLICE_TARGET - TABLE_BYTES) // cell_bytes
+    if per_slice < 1:
+        per_slice = (SMEM_LIMIT - TABLE_BYTES) // cell_bytes
+    direct = per_slice < 1
+    if direct:
+        per_slice = 32
+    slices = -(-units // per_slice)
+    slice_units = -(-units // slices)
+    tx = min(32, _pow2_at_least(slice_units))
+    max_chunks = -(-N // 256)
+    chunks = max(1, min(max_chunks, -(-BLOCKS_PER_SM * SMS // (B * slices))))
+    chunk_points = -(-N // chunks)
+    chunks = -(-N // chunk_points)
+    smem = TABLE_BYTES + (0 if direct else cell_bytes * slice_units)
+    return SamplerGeometry(unit, slice_units, slices, chunk_points, chunks, tx, direct, smem)
 
 
 def plain_grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -48,7 +113,9 @@ def plain_grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.
 
 
 def grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear samples of ``feat`` (B, H, W, C) at ``coords`` (B, N, 2); (B, N, C)."""
+    """Bilinear samples of ``feat`` (B, H, W, C) at ``coords`` (B, N, 2); (B, N, C).
+
+    On the card the kernel is cut by :func:`sampler_geometry`."""
     if feat.device.type == "cpu":
         return plain_grid_sample_points(feat, coords)
     if feat.device.type != "cuda":
@@ -63,8 +130,10 @@ def grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor
     fc = feat.contiguous()
     cc = coords.float().contiguous()
     out = torch.empty((B, N, C), dtype=feat.dtype, device=feat.device)
+    g = sampler_geometry(B, H, W, C, N, fc.element_size(), aligned=fc.data_ptr() % 16 == 0)
     _lib.lib().call("poem_grid_sample_points", _lib.dtype_code(fc), fc.data_ptr(),
-                    cc.data_ptr(), out.data_ptr(), B, H, W, C, N, _lib.stream_ptr(feat))
+                    cc.data_ptr(), out.data_ptr(), B, H, W, C, N, g.unit, g.slice_units,
+                    g.chunk_points, g.tx, int(g.direct), _lib.stream_ptr(feat))
     grid_sample_points.launches += 1
     return out
 

@@ -55,6 +55,20 @@ def make_keys(seed: int, B: int, M: int, N: int) -> np.ndarray:
     return (d2.view(np.int32) & ~0xFFF) | (col & 0xFFF)
 
 
+def make_prefix_keys(seed: int, B: int, M: int, N: int, base: int = 0x3D5A3000) -> np.ndarray:
+    """Adversarial keys: every key of a row shares the top 20 bits of ``base``,
+    ``(base & ~0xFFF) | column`` with the columns in a random order a row, so
+    radix8's first five passes keep the whole row active. Non-negative and
+    unique within a row, as :func:`make_keys`."""
+    if N > MAX_COLUMNS:
+        raise ValueError(f"a packed key holds a column below {MAX_COLUMNS}, got N={N}")
+    if not 0 <= base < (1 << 31):
+        raise ValueError(f"base {base:#x} must be a non-negative int32")
+    rs = np.random.RandomState(seed)
+    cols = np.argsort(rs.rand(B, M, N), axis=-1).astype(np.int32)
+    return np.int32(base & ~0xFFF) | cols
+
+
 def _check_keys(keys: torch.Tensor, k: int, non_negative: bool = True) -> None:
     if keys.dim() != 3 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be (B, M, N) int32, got {tuple(keys.shape)} {keys.dtype}")

@@ -49,6 +49,10 @@ def test_phase_kernels_rehearsal(on_cpu):
             assert row.get("lse_max_abs_err", 0.0) == 0.0
     for case in ("dense_cross_attention", "grid_sample_points_fused", "scrambled_merge_gather"):
         assert results[case]["bfloat16"]["library_ms"] is not None, case
+    # K4 at every width and at four times the batch (medium's B16)
+    assert {c for c in results if "grid_sample" in c} == {
+        "grid_sample_points_fused", "wide/grid_sample_points_fused/D48",
+        "wide/grid_sample_points_fused/B8_D32"}
     json.dumps(results)  # what goes into the kernels line is serialisable
 
 
@@ -83,12 +87,15 @@ def test_phase_graph_times_rehearsal(on_cpu):
     assert set(results) == {"graph_times"}
     k6 = {f"knn_vector_attention_trainable{what}/{case}/D{D}" for what in (" fwd + bwd", "_bwd")
           for case in ("self", "cross") for D in (32, 48)}
-    assert set(results["graph_times"]) == {
-        "knn_select (K1's selection alone)", "fused_knn_vector_attention",
+    sampler = {f"grid_sample_points_fused/B{b}_D{d}" for b, d in ((4, 128), (4, 512),
+                                                                   (4, 1024), (16, 256))}
+    assert set(results["graph_times"]) == sampler | {
+        "grid_sample_points_fused", "knn_select (K1's selection alone)",
+        "fused_knn_vector_attention",
         "fused_anchor_vector_attention", "fused_vector_attention", "scatter_add_rows/self",
         "scatter_add_rows/cross", "index_add_/self", "index_add_/cross"} | k6
-    for row in results["graph_times"].values():
-        assert set(row) == {"ms", "graph_ms"}
+    for name, row in results["graph_times"].items():
+        assert set(row) == {"ms", "graph_ms"} | ({"bound_ms"} if "grid_sample" in name else set())
     json.dumps(results)
 
 
@@ -156,6 +163,7 @@ def test_phase_select_rehearsal(on_cpu):
     assert set(row["variants_ms"]) == set(row["variants_plain_ms"]) == {
         "pass1", "scan32", "radix8", "cur", "bcast"}
     assert row["bound_by"] == "bytes" and row["library_ms"] is not None
+    assert set(row["prefix_keys_ms"]) == set(row["variants_ms"])  # the adversarial keys too
     json.dumps(results)
 
 

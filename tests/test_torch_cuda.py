@@ -197,6 +197,46 @@ def test_grid_sample_points(cuda, dtype):
     _close(got, want, dtype)
 
 
+def _sampler_case(rs, B, H, W, C, N, dtype, cuda):
+    feat = _mk(rs, B, H, W, C).to(dtype).to(cuda)
+    coords = torch.from_numpy(rs.uniform(-1.2, 1.2, (B, N, 2)).astype(np.float32))
+    # cell corners and borders, the centre, far off the map
+    fixed = torch.tensor([[-1.0, -1.0], [1.0, 1.0], [0.0, 0.0], [-2.0, 0.5],
+                          [1.0 - 1.0 / W, -1.0 + 3.0 / H], [0.5, 1.0]])
+    coords[:, :len(fixed)] = fixed[:N]
+    return feat, coords.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,C,N", [
+    (32, 16, 16, 128, 4096), (32, 16, 16, 256, 4096), (32, 16, 16, 512, 4096),
+    (32, 16, 16, 1024, 4096), (128, 16, 16, 256, 4096),   # the tiers' widths, medium's B16
+    (3, 12, 20, 24, 4099), (2, 16, 16, 6, 1000), (1, 1, 1, 8, 1)])  # ragged, whole elements
+def test_grid_sample_points_bit_identical(cuda, dtype, B, H, W, C, N):
+    """K4 equals its plain version bit for bit (the same float32 operations in
+    the same order), on the card."""
+    feat, coords = _sampler_case(np.random.RandomState(C + N), B, H, W, C, N, dtype, cuda)
+    got = bilinear.grid_sample_points(feat, coords)
+    assert got.dtype == dtype and torch.equal(got, bilinear.plain_grid_sample_points(feat, coords))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grid_sample_points_direct_and_unaligned_maps(cuda, dtype):
+    """A 128 x 128 map whose slice of one 16-byte unit a cell does not fit in
+    shared memory reads its taps directly; a map 2 or 4 bytes off 16 takes
+    one-element units. Both bit-identical to the plain version."""
+    rs = np.random.RandomState(9)
+    feat, coords = _sampler_case(rs, 2, 128, 128, 64, 2000, dtype, cuda)
+    assert bilinear.sampler_geometry(2, 128, 128, 64, 2000, feat.element_size()).direct
+    want = bilinear.plain_grid_sample_points(feat, coords)
+    assert torch.equal(bilinear.grid_sample_points(feat, coords), want)
+    flat = torch.empty(feat.numel() + 1, dtype=dtype, device=cuda)
+    shifted = flat[1:].view(feat.shape)
+    shifted.copy_(feat)
+    assert shifted.data_ptr() % 16 and torch.equal(bilinear.grid_sample_points(shifted, coords),
+                                                   want)
+
+
 def test_launch_counters_count_kernel_launches_only(cuda):
     rs = np.random.RandomState(6)
     feat, coords = _mk(rs, 1, 8, 8, 32), torch.zeros(1, 10, 2)
@@ -719,6 +759,43 @@ def test_kth_key_variants(cuda, name, B, M, N, K, BQ, CJ):
         assert np.array_equal(got.cpu().numpy(), kth)
     elif name in ("cur", "bcast"):
         assert np.array_equal(got.cpu().numpy(), kth + K * BQ)
+
+
+@pytest.mark.parametrize("N,K", [(1, 1), (33, 1), (33, 32), (33, 33), (4095, 1), (4095, 32),
+                                 (4095, 4095), (4096, 1), (4096, 32), (4096, 4096)])
+@pytest.mark.parametrize("kind", ["benchmark", "prefix"])
+def test_kth_key_variants_on_prefix_keys_and_ragged_rows(cuda, kind, N, K):
+    """K10's five variants on rows whose keys share a 20-bit prefix (radix8's
+    active set stays the whole row for five passes) and on rows of 1, 33 and
+    4095 keys (no 16-byte loads), K from 1 to N: equal to the plain versions,
+    scan32 and radix8 to np.partition."""
+    B, M = 2, 8
+    keys_np = (select.make_keys(N + K, B, M, N) if kind == "benchmark"
+               else select.make_prefix_keys(N + K, B, M, N))
+    CJ = max(d for d in range(1, 17) if K % d == 0)
+    keys = torch.from_numpy(keys_np).to(cuda)
+    calls = select.variant_calls(keys, K, M, CJ)
+    plains = select.variant_calls(keys.cpu(), K, M, CJ, plain=True)
+    kth = np.partition(keys_np, K - 1, axis=2)[..., K - 1:K]
+    for name in select.VARIANTS:
+        got = calls[name]().cpu()
+        assert torch.equal(got, plains[name]()), name
+        if name in ("scan32", "radix8"):
+            assert np.array_equal(got.numpy(), kth), name
+
+
+@pytest.mark.parametrize("kind,N", [("benchmark", 33), ("benchmark", 500), ("benchmark", 4096),
+                                    ("prefix", 4096)])
+def test_kth_key_radix8_repeated_launches(cuda, kind, N):
+    """radix8 on many rows, launched 20 times: rows that compact at once (N 33
+    and 500), two register passes (the benchmark's keys) and five (shared
+    prefix); every launch equal to the plain version."""
+    B, M, K = 4, 832, 32
+    maker = select.make_keys if kind == "benchmark" else select.make_prefix_keys
+    keys = torch.from_numpy(maker(N, B, M, N)).to(cuda)
+    want = select.variant_calls(keys, K, M, 16, plain=True)["radix8"]()
+    call = select.variant_calls(keys, K, M, 16)["radix8"]
+    assert all(torch.equal(call(), want) for _ in range(20))
 
 
 def test_kth_key_launch_counts_and_checks(cuda):
