@@ -17,14 +17,20 @@ non-zero:
    card; K4 and K5 bit-identical there too), each time with its share of
    the bound; K3 also at batch 1 with a key count that
    is no multiple of any tile (4100), and its row logsumexp against the plain
-   one (1e-5 absolute) in every K3 case; K1's bound from its least work (three
+   one (1e-5 absolute) in every K3 case, each side's distance from a float64
+   logsumexp logged beside it; K1's bound from its least work (three
    products a row, the k / v projection once a cloud point), the TPU kernel's
    five products a row beside it;
 1a. the attention core at neighbour counts that do not divide 32 (8, 24,
    48) and at 1 and 65 queries, D = 256 and D = 1024 at K = 24: K1, K2, K8
    and K6b (the backward of K6) against their plain versions on the card, K1's
    indices identical, K1 fed with its own indices (``neighbor_idx``) bit for
-   bit the selecting call, and K6b bit for bit on a second launch;
+   bit the selecting call, and K6b bit for bit on a second launch; then the
+   two selections alone against their plain versions on the card, indices
+   identical and two launches alike: K1's at N = 1, 33, 799, 4096, 5000 and
+   7000, M = 1 and 65, K = 1, 32, 48 and N, with and without duplicated
+   points; K9's up to 32 768 candidates, with ragged blocks, every bucket a
+   candidate and bucket sizes no multiple of 32 (margins as in phase 1c);
 1b. the training kernels at the train path's batch-4 shapes, D = 256 and then
    D = 128, 512 and 1024 (on the card): K3b (dQ, dK, dV; 4 heads of D / 4;
    from the forward's saved output and logsumexp, which is what is timed; two
@@ -39,9 +45,11 @@ non-zero:
    and 2e-2 of the peak;
 1e. bf16 at the batch-4 shapes, call by call and replayed from a CUDA
    graph: K4 (also at D = 128, 512, 1024 and at batch 16, with its share
-   of the bound), K1's selection alone, K1 (cross), K2, K8, and K7 (self, cross)
-   beside ``index_add_``; K6's forward + backward and K6b alone, self and
-   cross, at D = 256 and 1024;
+   of the bound), K1 (cross), K2, K8, and K7 (self, cross) beside
+   ``index_add_``; the selections alone with their bounds and plain versions:
+   K1's (cross and self), K9's candidate choice and selection, K9's attention
+   and K9 whole, beside ``torch.topk`` of a precomputed d2; K6's forward +
+   backward and K6b alone, self and cross, at D = 256 and 1024;
 1c. K9, the bucketed exact-KNN attention, on the real BPS cloud (4096 points
    in 32 k-d buckets of 128) with 799 queries on a posed hand, batch 4,
    D = 256 (and once D = 1024): against its plain version on the card
@@ -88,7 +96,8 @@ non-zero:
    (d) phase (b) for medium_MANO, with the pose and shape terms.
 
 The second-to-last line is a JSON object with one entry per kernel (``ms``
-call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph); the last
+call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
+K9's also their selections' times from phase 1e under ``selection``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
 without a CUDA device it fails before printing any result.
 """
@@ -435,17 +444,30 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
     return cases
 
 
-def check_lse(name, got, want, dtype):
-    """K3's second output against the plain logsumexp, ``LSE_TOL`` absolute."""
+def lse_float64(q, k, num_heads, sm_scale):
+    """The row logsumexp of the scaled logits in float64, on the CPU."""
+    qh, kh = (t.detach().cpu().double() for t in (q, k))
+    qh, kh = (t.reshape(t.shape[0], t.shape[1], num_heads, -1).transpose(1, 2) for t in (qh, kh))
+    return torch.logsumexp((qh @ kh.transpose(-1, -2)) * sm_scale, dim=-1)
+
+
+def check_lse(name, got, want, dtype, ref64=None):
+    """K3's second output against the plain logsumexp, ``LSE_TOL`` absolute.
+    With ``ref64`` (a float64 logsumexp of the same logits) it also logs how
+    far each of the two lies from it: a diagnostic, not a limit."""
     if got.shape != want.shape or got.dtype != torch.float32:
         raise AssertionError(f"{name}: lse {tuple(got.shape)} {got.dtype}, plain "
                              f"{tuple(want.shape)}")
     err = float((got.detach().cpu() - want.detach().cpu()).abs().max())
     ok = bool(torch.isfinite(got).all()) and err <= LSE_TOL
-    log(f"  {name} [{_dt(dtype)}] lse max_abs_err={err:.3e} (tol {LSE_TOL:.0e}) "
+    f64 = ""
+    if ref64 is not None:
+        f64 = (f"; against float64: kernel {float((got.cpu().double() - ref64).abs().max()):.3e}"
+               f", plain {float((want.cpu().double() - ref64).abs().max()):.3e}")
+    log(f"  {name} [{_dt(dtype)}] lse max_abs_err={err:.3e} (tol {LSE_TOL:.0e}){f64} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: lse max_abs_err {err} > {LSE_TOL}")
+        raise AssertionError(f"{name}: lse max_abs_err {err} > {LSE_TOL}{f64}")
     return err
 
 
@@ -482,7 +504,7 @@ def phase_kernels(results, **shapes):
                                                                   return_lse=True)
                 qk = (dev_args if c.get("plain_on_card") else cpu_args)[:2]
                 lse_err = check_lse(case, lse, cross_attn.plain_dense_cross_attention_lse(
-                    *qk, **kw), dtype)
+                    *qk, **kw), dtype, ref64=lse_float64(*cpu_args[:2], **kw))
             ms = time_cuda(lambda: wrapper(*dev_args, **kw))
             plain_ms = time_cuda(lambda: plain(*dev_args, **kw), iters=3, warmup=1)
             library_ms = None
@@ -584,6 +606,88 @@ def phase_core_shapes(results, B=2, N=600, D=256, wide=1024, Ks=(8, 24, 48), Ms=
         "indices bit-identical to the selecting call; K6b bit-identical on a second launch")
 
 
+# K9's selection at the edges of its limits: (B, M, N, bucket size, block_q,
+# n_cand, K, queries around one point): a ragged last block; every bucket a
+# candidate (the sentinel margin); bucket sizes that are no multiple of 32; one
+# candidate bucket; 6144 candidates (the most staged in shared memory), 6656,
+# 8192, 16 384 and 32 768 (read from L2); K = n_cand x bucket size
+K9_EDGE_CASES = (
+    (4, 799, 4096, 128, 32, 8, 32, True), (2, 203, 1000, 40, 7, 3, 48, False),
+    (2, 100, 768, 96, 50, 1, 16, True), (2, 65, 16384, 512, 16, 12, 32, True),
+    (2, 65, 16384, 512, 16, 13, 32, False), (2, 65, 8192, 1024, 16, 8, 32, False),
+    (1, 33, 16384, 512, 33, 32, 48, False), (1, 40, 32768, 1024, 32, 32, 32, True),
+    (2, 65, 600, 24, 64, 25, 48, False), (1, 9, 360, 45, 4, 2, 90, False),
+    (2, 1, 512, 32, 32, 16, 1, False))
+
+
+def _cloud(rs, n: int, dup: bool) -> torch.Tensor:
+    """n points in the unit ball; ``dup``: every point twice (exact ties)."""
+    if dup and n > 1:
+        half = _ball(rs, (n + 1) // 2)
+        return torch.cat([half, half], 0)[:n]
+    return _ball(rs, n)
+
+
+def phase_selection_shapes(results, B=2, Ns=(1, 33, 799, 4096, 5000, 7000), Ms=(1, 65),
+                           Ks=(1, 32, 48), k9_cases=K9_EDGE_CASES):
+    """Phase 1a, the selections alone: K1's (``knn_select``) at every N, M and
+    K of the lists and K = N (packed keys up to 4096 points, exact keys above,
+    the cloud read from L2 above 6144), on clouds with and without every point
+    twice, and K9's (``knn_select_bucketed``) at ``k9_cases``, against their
+    plain versions on the card: indices ``torch.equal``, K9's margins certified
+    alike and within 1e-6, and two launches the same bits."""
+    log(f"phase 1a: the selections alone: K1's at N = {', '.join(map(str, Ns))}, M = "
+        f"{', '.join(map(str, Ms))}, K = {', '.join(map(str, Ks))} and N; K9's at "
+        f"{len(k9_cases)} shapes")
+    rs = np.random.RandomState(11)
+    n1 = 0
+    for N in Ns:
+        for M in Ms:
+            for K in sorted({k for k in (*Ks, N) if k <= N}):
+                for dup in (False, True):
+                    pxyz = _to(_cloud(rs, N, dup)[None].expand(B, N, 3).contiguous(), "cuda")
+                    qxyz = _to(torch.from_numpy((rs.randn(B, M, 3) * 0.4).astype(np.float32)),
+                               "cuda")
+                    got, again = (knn_attn.knn_select(qxyz, pxyz, K) for _ in range(2))
+                    want = knn_attn.knn_select_plain(qxyz, pxyz, K)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, want) and torch.equal(got, again)):
+                        raise AssertionError(
+                            f"knn_select B{B} M{M} N{N} K{K} dup={dup}: "
+                            f"{int((got != want).sum())} indices differ from the plain version, "
+                            f"{int((got != again).sum())} between two launches")
+                    n1 += 1
+    log(f"  knn_select: {n1} cases identical to the plain version, two launches alike")
+    for Bc, M, N, SB, BQ, C, K, tight in k9_cases:
+        cloud = rs.randn(N, 3).astype(np.float32)
+        perm, lo, hi = points.build_balanced_buckets(cloud, SB)
+        q_np = cloud[7] + rs.randn(Bc, M, 3).astype(np.float32) * (0.05 if tight else 1.0)
+        qxyz, pxyz, lo, hi = (_to(torch.from_numpy(np.array(a)), "cuda") for a in (
+            q_np, np.broadcast_to(cloud[perm], (Bc, N, 3)), lo, hi))
+        cand = knn_attn.select_candidate_buckets(knn_attn._pad_queries_edge(qxyz, BQ), lo, hi,
+                                                 BQ, C)
+        args = (qxyz, pxyz, lo, hi, cand, K, BQ, C, SB)
+        (idx, margins), (idx2, margins2) = (knn_attn.knn_select_bucketed(*args) for _ in range(2))
+        widx, wm = knn_attn.knn_select_bucketed_plain(*args)
+        torch.cuda.synchronize()
+        tag = f"knn_select_bucketed B{Bc} M{M} N{N} SB{SB} BQ{BQ} C{C} K{K}"
+        if not torch.equal(idx, widx):
+            raise AssertionError(f"{tag}: {int((idx != widx).sum())} indices differ")
+        finite = wm < 1e30
+        m_err = float((margins - wm)[finite].abs().max()) if bool(finite.any()) else 0.0
+        if not torch.equal(margins >= 0, wm >= 0) or not torch.equal(margins < 1e30, finite) \
+                or m_err > 1e-6:
+            raise AssertionError(f"{tag}: margins differ from the plain version "
+                                 f"(max abs {m_err:.3e})")
+        if C * SB == N and not bool((margins == knn_attn.MARGIN_SENTINEL).all()):
+            raise AssertionError(f"{tag}: a margin is not the sentinel")
+        if not (torch.equal(idx, idx2) and torch.equal(margins, margins2)):
+            raise AssertionError(f"{tag}: two launches differ")
+        log(f"  {tag}: indices identical, margins within {m_err:.1e}, "
+            f"{int((margins >= 0).sum())} of {margins.numel()} blocks certified")
+    results["selection_shapes"] = dict(knn_select=n1, knn_select_bucketed=len(k9_cases))
+
+
 @functools.lru_cache(maxsize=None)
 def capture_stream() -> "torch.cuda.Stream":
     """The one side stream of every capture: cuBLAS keeps a workspace (tens of
@@ -610,13 +714,23 @@ def time_graph(fn, iters: int = 20) -> float:
     return time_cuda(graph.replay, iters=3, warmup=1) / iters
 
 
+# float32 operations of a selection a (query, point) pair: 13 for d2, one compare
+SELECT_OPS_PER_PAIR = 14
+
+
 def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024,
-                      sampler_shapes=((4, 128), (4, 512), (4, 1024), (16, 256))):
+                      sampler_shapes=((4, 128), (4, 512), (4, 1024), (16, 256)),
+                      bucket_size=128, n_cand=8, block_q=32):
     """Phase 1e, bf16 at the batch-4 shapes: K4, the selection alone, the core
     (K1 cross, K2, K8) and K7 (self, cross) call by call and from a CUDA graph,
     K4 also at the (batch, width) of ``sampler_shapes`` with its byte bound,
-    and ``index_add_`` from a graph beside K7; then K6's forward + backward (the
-    train path's call) and K6b alone, self and cross, at D and at ``wide``."""
+    and ``index_add_`` from a graph beside K7; the selections alone with their
+    bounds and plain versions' times: K1's (cross and self), K9's candidate
+    choice and selection on the BPS cloud at ``n_cand``, K9's attention at its
+    indices and K9 whole, beside ``torch.topk`` of a precomputed d2 (a
+    yardstick, not the same function: it does not promise the lowest index among
+    ties); then K6's forward + backward (the train path's call) and K6b alone,
+    self and cross, at D and at ``wide``."""
     log(f"phase 1e: call by call and from a CUDA graph, bf16, B={B}, M={M}, N={N}, D={D}, K={K} "
         f"[{gpu_line()}]")
     rs = np.random.RandomState(10)
@@ -635,7 +749,6 @@ def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024,
     grid = _to(torch.from_numpy(rs.uniform(-1.2, 1.2, (B * 8, N, 2)).astype(np.float32)), "cuda")
     calls = {
         "grid_sample_points_fused": lambda: bilinear.grid_sample_points(maps, grid),
-        "knn_select (K1's selection alone)": lambda: knn_attn.knn_select(qxyz, cloud, K),
         "fused_knn_vector_attention": lambda: knn_attn.fused_knn_vector_attention(
             q, qxyz, cloud, xf, wk, wv, fcd, fcg, n_neighbor=K),
         "fused_anchor_vector_attention": lambda: knn_attn.fused_anchor_vector_attention(
@@ -679,6 +792,55 @@ def phase_graph_times(results, B=4, M=799, N=4096, D=256, K=32, wide=1024,
             timed[name]["bound_ms"] = b_ms
             log(f"  {name}: bound {b_ms:.4f} ms (bytes), from a CUDA graph "
                 f"{100 * b_ms / timed[name]['graph_ms']:.1f}% of it")
+        # the selections alone, K9's parts and K9 whole
+        args9, fcd9, fcg9 = bucketed_case(np.random.RandomState(8), B, M, N, D, bucket_size)
+        k9 = "fused_knn_vector_attention_bucketed"
+        dev9 = _to(tuple(_to(t, "cpu", None if i in KEEP_F32[k9] else bf)
+                         for i, t in enumerate((*args9, fcd9, fcg9))), "cuda")
+        q9, qxyz9, cloud9, xf9, lo9, hi9 = dev9[:6]
+        cand9 = knn_attn.select_candidate_buckets(knn_attn._pad_queries_edge(qxyz9, block_q),
+                                                  lo9, hi9, block_q, n_cand)
+        sel9 = (qxyz9, cloud9, lo9, hi9, cand9, K, block_q, n_cand, bucket_size)
+        idx9 = knn_attn.knn_select_bucketed(*sel9)[0]
+        d2 = {"cross": knn_attn.square_distance_rn(qxyz, cloud),
+              "self": knn_attn.square_distance_rn(qxyz, qxyz)}
+        selections = {  # name: (call, plain version, (query, point) pairs, bytes)
+            "knn_select (K1's selection alone)": (
+                lambda: knn_attn.knn_select(qxyz, cloud, K),
+                lambda: knn_attn.knn_select_plain(qxyz, cloud, K), B * M * N,
+                4 * B * (M * 3 + N * 3 + M * K)),
+            "knn_select/self (K1's selection alone)": (
+                lambda: knn_attn.knn_select(qxyz, qxyz, K),
+                lambda: knn_attn.knn_select_plain(qxyz, qxyz, K), B * M * M,
+                4 * B * (M * 3 + M * 3 + M * K)),
+            "knn_select_bucketed (K9's selection alone)": (
+                lambda: knn_attn.knn_select_bucketed(*sel9),
+                lambda: knn_attn.knn_select_bucketed_plain(*sel9),
+                B * M * n_cand * bucket_size,
+                4 * B * (M * 3 + N * 3 + M * K + cand9.numel() // B + M // block_q + 1)
+                + 4 * 6 * lo9.shape[0]),
+        }
+        for name, (call, plain, pairs, nbytes) in selections.items():
+            time_both(name, call)
+            b_ms, b_by = bound_ms(nbytes, SELECT_OPS_PER_PAIR * pairs, torch.float32)
+            timed[name].update(bound_ms=b_ms, bound_by=b_by,
+                               plain_ms=time_cuda(plain, iters=3, warmup=1))
+            log(f"  {name}: bound {b_ms:.4f} ms ({b_by}), from a CUDA graph "
+                f"{100 * b_ms / timed[name]['graph_ms']:.1f}% of it; plain version on the card "
+                f"{timed[name]['plain_ms']:.4f} ms")
+        for case in ("cross", "self"):
+            time_both(f"torch.topk of d2/{case} (a yardstick)",
+                      lambda d=d2[case]: torch.topk(d, K, dim=-1, largest=False, sorted=True))
+        time_both("select_candidate_buckets (K9's candidate choice)",
+                  lambda: knn_attn.select_candidate_buckets(
+                      knn_attn._pad_queries_edge(qxyz9, block_q), lo9, hi9, block_q, n_cand))
+        time_both("K9's attention (K1's chain at K9's indices)",
+                  lambda: knn_attn.fused_knn_vector_attention(
+                      q9, qxyz9, cloud9, xf9, *dev9[6:], n_neighbor=K, neighbor_idx=idx9))
+        time_both("fused_knn_vector_attention_bucketed (K9 whole)",
+                  lambda: knn_attn.fused_knn_vector_attention_bucketed(
+                      *dev9, n_neighbor=K, block_q=block_q, n_cand=n_cand,
+                      bucket_size=bucket_size))
     for Dw in (D, wide):
         for case in ("self", "cross"):
             ts, dout = k6_train_inputs(rs, B, M, N, Dw, bf, self_attn=case == "self")
@@ -1200,6 +1362,7 @@ def main() -> int:
     results = {}
     phase_kernels(results)
     phase_core_shapes(results)
+    phase_selection_shapes(results)
     phase_train_kernels(results)
     phase_graph_times(results)
     bucketed_launches = phase_bucketed(results)
@@ -1253,6 +1416,20 @@ def main() -> int:
     # so beside its call-by-call ``ms`` it carries phase 1e's CUDA-graph time
     k4 = next(e for e in entries if e["name"] == "grid_sample_points_fused")
     k4["graph_ms"] = results["graph_times"]["grid_sample_points_fused"]["graph_ms"]
+    # the two selections alone (phase 1e), beside their bounds and plain versions
+    gt, by_name = results["graph_times"], {e["name"]: e for e in entries}
+    sel = lambda name: {k: gt[name][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")}
+    by_name["fused_knn_vector_attention"]["selection"] = dict(
+        cross=sel("knn_select (K1's selection alone)"),
+        self=sel("knn_select/self (K1's selection alone)"),
+        topk_graph_ms={c: gt[f"torch.topk of d2/{c} (a yardstick)"]["graph_ms"]
+                       for c in ("cross", "self")})
+    by_name["fused_knn_vector_attention_bucketed"]["selection"] = dict(
+        sel("knn_select_bucketed (K9's selection alone)"),
+        candidates_graph_ms=gt["select_candidate_buckets (K9's candidate choice)"]["graph_ms"],
+        attention_graph_ms=gt["K9's attention (K1's chain at K9's indices)"]["graph_ms"],
+        whole_graph_ms=gt["fused_knn_vector_attention_bucketed (K9 whole)"]["graph_ms"])
     missing = [e["name"] for e in entries if e["launches"] < 1]
     if missing:
         raise AssertionError(f"kernels that no path launched: {missing}")

@@ -36,11 +36,16 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
 }
-__device__ __forceinline__ float d2_rn(float qx, float qy, float qz, float qq, float px, float py,
-                                       float pz) {
+// ... with |p|^2 given (pp = sq3(px, py, pz), formed once a point)
+__device__ __forceinline__ float d2_rn_pp(float qx, float qy, float qz, float qq, float px,
+                                          float py, float pz, float pp) {
   const float cross =
       __fadd_rn(__fadd_rn(__fmul_rn(qx, px), __fmul_rn(qy, py)), __fmul_rn(qz, pz));
-  return __fsub_rn(__fadd_rn(qq, sq3(px, py, pz)), __fmul_rn(2.0f, cross));
+  return __fsub_rn(__fadd_rn(qq, pp), __fmul_rn(2.0f, cross));
+}
+__device__ __forceinline__ float d2_rn(float qx, float qy, float qz, float qq, float px, float py,
+                                       float pz) {
+  return d2_rn_pp(qx, qy, qz, qq, px, py, pz, sq3(px, py, pz));
 }
 
 // float32 bits <-> unsigned values in the same order (negative values included)

@@ -22,14 +22,19 @@
 // width the models use (D = 128 to 1024). In bfloat16 only `wgmma` reaches
 // the tensor cores' rate. The selection reads only xyz.
 //
-// Selection (`knn_select_kernel`): one warp per query. With the padded cloud
-// at most 4096 points the warp packs (bits(d2) & ~0xFFF) | column into
-// 32-bit keys in shared memory and runs K rounds of "smallest key above the
-// last one" with a warp min, exactly the TPU kernel's packed key selection
-// (lowest index wins ties). Larger clouds take exact argmin rounds over
-// 64-bit (orderable d2 bits, column) keys. d2 is formed with __fmul_rn /
-// __fadd_rn in the plain version's operation order so no fused multiply-add
-// moves the 12 masked bits. Indices given by the caller skip it.
+// Selection (`knn_select_kernel`, on `select_core.cuh`): the K least keys of
+// each query's row, with the TPU kernel's packed 32-bit keys (bits(d2) &
+// ~0xFFF) | column while the cloud padded to 128 is at most 4096 points
+// (lowest index wins ties), exact 64-bit (d2, column) keys above. d2 is
+// formed with __fmul_rn / __fadd_rn in the plain version's operation order,
+// so no fused multiply-add moves the 12 masked bits. What bounds it: 14
+// float32 operations a (query, point) pair (13 for d2, one compare), 0.0027
+// ms at B 4, 799 queries, 4096 points; one pass over the row keeps it there.
+// A block of 4 to 16 warps (`rows_per_block`: 13 at B 4, 799 queries and 4096
+// points) takes as many queries of one sample, a warp a query, with the cloud
+// staged once a block in shared memory as (x, y, z, |p|^2) (64 KB at 4096
+// points; clouds above 6144 points are read from L2 instead). Indices given by
+// the caller skip it.
 //
 // bfloat16 attention: a chain of tensor-core kernels (second half of the
 // file, design there). The TPU kernel projects k and v of every gathered row
@@ -56,66 +61,47 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "knn_core.cuh"
+#include "select_core.cuh"
 
 namespace poem {
 
-constexpr int SEL_WARPS = 4;
 constexpr int PACK_MAX = 4096;
 constexpr int VA_THREADS = 256;
 
-template <bool PACKED>
-__global__ void knn_select_kernel(const float* __restrict__ qxyz, const float* __restrict__ ptxyz,
-                                  int* __restrict__ idx, int M, int N, int K) {
-  extern __shared__ uint32_t keys_smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  const int m = blockIdx.x * SEL_WARPS + warp;
-  if (m >= M) return;  // whole warp leaves; the kernel has no block barrier
-  const float* qp = qxyz + ((size_t)b * M + m) * 3;
+// (x, y, z, |p|^2) of sample b's N points into shared memory, |p|^2 rounded
+// as d2_rn forms it.
+__device__ __forceinline__ void stage_points(float4* pts, const float* __restrict__ p, int N) {
+  for (int j = threadIdx.x; j < N; j += blockDim.x) {
+    const float x = p[3 * j], y = p[3 * j + 1], z = p[3 * j + 2];
+    pts[j] = make_float4(x, y, z, sq3(x, y, z));
+  }
+}
+
+// The K nearest of the N cloud points of every query, in ascending key order:
+// Key = uint32_t, the TPU kernel's packed keys (N <= 4096); key64_t, exact
+// (d2, column) order. A block of `qpb` warps takes qpb queries of one sample,
+// a warp a query (`least_keys_in_order`), with the cloud staged once in shared
+// memory (STAGED) or read from L2 (clouds above SC_STAGE_MAX).
+template <typename Key, bool STAGED>
+__global__ void __launch_bounds__(SC_MAX_WARPS * SC_LANES)
+    knn_select_kernel(const float* __restrict__ qxyz, const float* __restrict__ ptxyz,
+                      int* __restrict__ idx, int M, int N, int K, int qpb) {
+  extern __shared__ float4 sel_pts[];  // [N] when STAGED
+  const int b = blockIdx.y, w = threadIdx.x / SC_LANES;
   const float* p = ptxyz + (size_t)b * N * 3;
-  const float qx = qp[0], qy = qp[1], qz = qp[2];
-  const float qq = sq3(qx, qy, qz);
-  int* out = idx + ((size_t)b * M + m) * K;
-
-  auto d2_of = [&](int j) {
-    return d2_rn(qx, qy, qz, qq, p[3 * j], p[3 * j + 1], p[3 * j + 2]);
-  };
-
-  if (PACKED) {
-    uint32_t* keys = keys_smem + warp * N;
-    for (int j = lane; j < N; j += 32) {
-      const float d = fmaxf(d2_of(j), 0.0f);  // d2 >= 0: unsigned order == float order
-      keys[j] = (__float_as_uint(d) & ~0xFFFu) | (uint32_t)j;
-    }
-    __syncwarp();
-    uint32_t thr = 0;
-    for (int k = 0; k < K; ++k) {
-      uint32_t best = 0xFFFFFFFFu;
-      for (int j = lane; j < N; j += 32) {
-        const uint32_t key = keys[j];
-        if ((k == 0 || key > thr) && key < best) best = key;
-      }
-      thr = __reduce_min_sync(0xFFFFFFFFu, best);
-      if (lane == 0) out[k] = (int)(thr & 0xFFFu);
-    }
-  } else {
-    // exact argmin rounds: (d2, column) in lexicographic order; d2 is not
-    // clamped, so map its bits to an order-preserving unsigned value
-    unsigned long long thr = 0;
-    for (int k = 0; k < K; ++k) {
-      unsigned long long best = ~0ull;
-      for (int j = lane; j < N; j += 32) {
-        const unsigned long long key =
-            ((unsigned long long)float_to_ordered(d2_of(j)) << 32) | (uint32_t)j;
-        if ((k == 0 || key > thr) && key < best) best = key;
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long o = __shfl_xor_sync(0xFFFFFFFFu, best, off);
-        best = o < best ? o : best;
-      }
-      thr = best;
-      if (lane == 0) out[k] = (int)(thr & 0xFFFFFFFFu);
-    }
+  if (STAGED) {
+    stage_points(sel_pts, p, N);
+    __syncthreads();
+  }
+  const int m = (int)blockIdx.x * qpb + w;
+  if (m < M) {
+    const SelQuery q(qxyz + ((size_t)b * M + m) * 3);
+    int* out = idx + ((size_t)b * M + m) * K;
+    auto emit = [&](int r, Key key) { out[r] = key_column(key); };
+    if (STAGED)
+      least_keys_in_order<Key>(SmemPoints<Key>{sel_pts, N, q}, K, emit);
+    else
+      least_keys_in_order<Key>(GlobalPoints<Key>{p, N, q}, K, emit);
   }
 }
 
@@ -815,29 +801,36 @@ cudaError_t launch_core_bf16(int mode, const void* q, const void* qxyz, const vo
 #undef CORE_GEMM
 }
 
+template <typename Key, bool STAGED>
+cudaError_t launch_knn_select(const float* qxyz, const float* ptxyz, int* idx, int B, int M, int N,
+                              int K, cudaStream_t s) {
+  const size_t smem = STAGED ? (size_t)N * sizeof(float4) : 0;
+  const int qpb = rows_per_block(B, M, smem);
+  cudaError_t err = allow_smem(knn_select_kernel<Key, STAGED>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + qpb - 1) / qpb, B);
+  knn_select_kernel<Key, STAGED><<<grid, qpb * SC_LANES, smem, s>>>(qxyz, ptxyz, idx, M, N, K,
+                                                                    qpb);
+  return cudaGetLastError();
+}
+
 }  // namespace poem
 
 using namespace poem;
 
 // Select the K nearest cloud points of every query; idx is (B, M, K) int32
-// in ascending (distance, index) order. packed != 0 uses the 12-bit
-// packed keys (N <= 4096 required), packed == 0 exact argmin rounds.
+// in ascending (distance, index) order, K <= N. packed != 0 uses the 12-bit
+// packed keys (N <= 4096 required), packed == 0 exact (d2, index) keys.
 extern "C" int poem_knn_select(const void* qxyz, const void* ptxyz, void* idx, int B, int M,
                                int N, int K, int packed, void* stream) {
-  dim3 grid((M + SEL_WARPS - 1) / SEL_WARPS, B);
+  if (B < 1 || M < 1 || K < 1 || K > N || (packed && N > PACK_MAX))
+    return (int)cudaErrorInvalidValue;
+  const float *q = (const float*)qxyz, *p = (const float*)ptxyz;
+  int* out = (int*)idx;
   cudaStream_t s = (cudaStream_t)stream;
-  if (packed) {
-    if (N > PACK_MAX) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)SEL_WARPS * N * sizeof(uint32_t);
-    cudaError_t err = allow_smem(knn_select_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    knn_select_kernel<true><<<grid, SEL_WARPS * 32, smem, s>>>(
-        (const float*)qxyz, (const float*)ptxyz, (int*)idx, M, N, K);
-  } else {
-    knn_select_kernel<false><<<grid, SEL_WARPS * 32, 0, s>>>(
-        (const float*)qxyz, (const float*)ptxyz, (int*)idx, M, N, K);
-  }
-  return (int)cudaGetLastError();
+  if (packed) return (int)launch_knn_select<uint32_t, true>(q, p, out, B, M, N, K, s);
+  if (N <= SC_STAGE_MAX) return (int)launch_knn_select<key64_t, true>(q, p, out, B, M, N, K, s);
+  return (int)launch_knn_select<key64_t, false>(q, p, out, B, M, N, K, s);
 }
 
 static bool aligned16(std::initializer_list<const void*> ptrs) {

@@ -34,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "poem_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "poem_knn_select_bucketed": [_P] * 7 + [_I] * 8 + [_P],
+    "poem_knn_select_bucketed": [_P] * 8 + [_I] * 8 + [_P],
     "poem_vector_attention": [_I, _I] + [_P] * 22 + [_I] * 5 + [ctypes.c_float, _P],
     "poem_knn_attention_bwd": [_I] + [_P] * 31 + [_I] * 5 + [ctypes.c_float, _P],
     "poem_kth_key_rows": [_I, _P, _P, _I, _I, _I, _P],

@@ -16,9 +16,10 @@ Counterparts of ``poem_v2_tpu/ops/pallas_knn_attn.py``:
 * :func:`fused_knn_vector_attention_bucketed` <-
   ``fused_knn_vector_attention_bucketed`` (K9: the exact K-NN restricted to
   the nearest k-d buckets of a static cloud, with a per-block exactness
-  margin; ``csrc/knn_bucketed.cu`` selects, K1's attention kernel follows)
-  and its host step :func:`select_candidate_buckets`. As in the JAX package
-  it is a function only: no model path calls it.
+  margin; ``csrc/knn_bucketed.cu`` selects, :func:`knn_select_bucketed`
+  alone, K1's attention kernel follows) and its host step
+  :func:`select_candidate_buckets`. As in the JAX package it is a function
+  only: no model path calls it.
 
 Each wrapper takes CPU tensors to its plain PyTorch version and CUDA
 tensors to the hand-written kernel in ``csrc/knn_attn.cu`` (K6b: in
@@ -30,8 +31,9 @@ Widths: the kernels take float32 or bfloat16 tensors with D a multiple of
 4 up to 1024 (the released tiers use 128, 256, 512 and 1024) and any
 neighbour or anchor count K (at most the cloud's size); the wrappers raise
 ``ValueError`` for anything else, ``TypeError`` for another dtype. The
-selection takes any cloud size (packed 12-bit-column keys up to 4096
-points, argmin rounds above). :func:`fused_knn_vector_attention` also takes
+selection (:func:`knn_select`, on ``csrc/select_core.cuh`` as K9's is) takes
+any cloud size (packed 12-bit-column keys up to 4096 points, exact (distance,
+index) keys above). :func:`fused_knn_vector_attention` also takes
 the caller's indices (``neighbor_idx``, the TPU kernel's
 ``_kernel_from_idx``) and then skips the selection.
 
@@ -432,7 +434,7 @@ knn_vector_attention_trainable.launches = 0
 # ---------------------------------------------------------------------------
 
 MARGIN_SENTINEL = 3.4e38  # the margin of a block that has no non-candidate bucket
-# the selection kernel keeps a warp's candidate distances in shared memory (4 bytes a point)
+# the most candidate points a query block the selection kernel takes
 MAX_CANDIDATE_POINTS = 32768
 
 
@@ -484,18 +486,16 @@ def _check_buckets(N: int, NB: int, n_neighbor: int, n_cand: int, bucket_size: i
                          "candidate points")
 
 
-def plain_fused_knn_vector_attention_bucketed(
-        q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, fc_delta, fc_gamma, n_neighbor: int = 32,
-        block_q: int = 32, n_cand: int = 8, bucket_size: int = 128, return_idx: bool = False):
-    """Plain PyTorch version of :func:`fused_knn_vector_attention_bucketed`."""
-    B, M, _ = q.shape
+def knn_select_bucketed_plain(query_xyz, pt_xyz, lo, hi, cand, n_neighbor: int, block_q: int,
+                              n_cand: int, bucket_size: int):
+    """Plain version of :func:`knn_select_bucketed`."""
+    B, M, _ = query_xyz.shape
     K, SB, C = n_neighbor, bucket_size, n_cand
-    _check_buckets(pt_xyz.shape[1], lo.shape[0], K, C, SB)
     qxyz = _pad_queries_edge(query_xyz.float(), block_q)
     nblk = qxyz.shape[1] // block_q
-    cand = select_candidate_buckets(qxyz, lo, hi, block_q, C).reshape(B, nblk, C).long()
+    cand = cand.reshape(B, nblk, C).long()
     # cloud index of every candidate column, (B, nblk, C * SB)
-    cols = (cand[..., None] * SB + torch.arange(SB, device=q.device)).reshape(B, nblk, C * SB)
+    cols = (cand[..., None] * SB + torch.arange(SB, device=cand.device)).reshape(B, nblk, C * SB)
     cand_xyz = index_points(pt_xyz.float(), cols)  # (B, nblk, C * SB, 3)
     qb = qxyz.reshape(B, nblk, block_q, 3)
     d2 = square_distance_rn(qb.reshape(B * nblk, block_q, 3), cand_xyz.reshape(B * nblk, C * SB, 3))
@@ -506,12 +506,61 @@ def plain_fused_knn_vector_attention_bucketed(
     idx = torch.gather(cols, 2, pos).reshape(B, nblk * block_q, K)[:, :M].to(torch.int32)
 
     lb = box_lower_bound(qb, lo, hi)  # (B, nblk, block_q, NB)
-    is_cand = torch.zeros((B, nblk, lo.shape[0]), dtype=torch.bool, device=q.device)
+    is_cand = torch.zeros((B, nblk, lo.shape[0]), dtype=torch.bool, device=cand.device)
     is_cand.scatter_(2, cand, True)
     lb = lb.masked_fill(is_cand[:, :, None, :], float("inf"))
     margins = (lb.min(dim=-1).values - kth_d2).min(dim=-1).values  # (B, nblk)
     margins = torch.where(torch.isfinite(margins), margins,
                           torch.full_like(margins, MARGIN_SENTINEL))
+    return idx, margins
+
+
+def knn_select_bucketed(query_xyz: torch.Tensor, pt_xyz: torch.Tensor, lo: torch.Tensor,
+                        hi: torch.Tensor, cand: torch.Tensor, n_neighbor: int, block_q: int,
+                        n_cand: int, bucket_size: int):
+    """K9's selection alone: for every query its ``n_neighbor`` nearest points
+    among the ``n_cand`` candidate buckets of its block (``cand``, as
+    :func:`select_candidate_buckets` returns them), as (B, M, K) int32 cloud
+    indices in ascending (d2, candidate column) order, and the (B, ceil(M /
+    block_q)) float32 margins. The plain version on the CPU,
+    ``csrc/knn_bucketed.cu`` on the card (no launch count of its own: it is
+    part of K9)."""
+    B, M, _ = query_xyz.shape
+    N, NB = pt_xyz.shape[1], lo.shape[0]
+    _check_buckets(N, NB, n_neighbor, n_cand, bucket_size)
+    if query_xyz.device.type == "cpu":
+        return knn_select_bucketed_plain(query_xyz, pt_xyz, lo, hi, cand, n_neighbor, block_q,
+                                         n_cand, bucket_size)
+    check_one_device(query_xyz, pt_xyz, lo, hi, cand)
+    if n_cand * bucket_size > MAX_CANDIDATE_POINTS:
+        raise ValueError(f"the CUDA kernel takes at most {MAX_CANDIDATE_POINTS} candidate "
+                         f"points a block, got {n_cand} x {bucket_size}")
+    nblk = _round_up(M, block_q) // block_q
+    if cand.numel() != B * nblk * n_cand:
+        raise ValueError(f"cand holds {cand.numel()} bucket ids, not {B} x {nblk} x {n_cand}")
+    qxyz = query_xyz.float().contiguous()
+    pxyz = pt_xyz.float().contiguous()
+    lo32, hi32 = lo.float().contiguous(), hi.float().contiguous()
+    cand32 = cand.to(torch.int32).contiguous()
+    idx = torch.empty((B, M, n_neighbor), dtype=torch.int32, device=qxyz.device)
+    margins = torch.empty((B, nblk), dtype=torch.float32, device=qxyz.device)
+    qmargin = torch.empty((B, M), dtype=torch.float32, device=qxyz.device)  # per-query scratch
+    _lib.lib().call("poem_knn_select_bucketed", qxyz.data_ptr(), pxyz.data_ptr(),
+                    cand32.data_ptr(), lo32.data_ptr(), hi32.data_ptr(), idx.data_ptr(),
+                    margins.data_ptr(), qmargin.data_ptr(), B, M, N, NB, n_neighbor, block_q,
+                    n_cand, bucket_size, _lib.stream_ptr(qxyz))
+    return idx, margins
+
+
+def plain_fused_knn_vector_attention_bucketed(
+        q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, fc_delta, fc_gamma, n_neighbor: int = 32,
+        block_q: int = 32, n_cand: int = 8, bucket_size: int = 128, return_idx: bool = False):
+    """Plain PyTorch version of :func:`fused_knn_vector_attention_bucketed`."""
+    _check_buckets(pt_xyz.shape[1], lo.shape[0], n_neighbor, n_cand, bucket_size)
+    cand = select_candidate_buckets(_pad_queries_edge(query_xyz.float(), block_q), lo, hi,
+                                    block_q, n_cand)
+    idx, margins = knn_select_bucketed_plain(query_xyz, pt_xyz, lo, hi, cand, n_neighbor,
+                                             block_q, n_cand, bucket_size)
     out = _plain_attention_at(q, query_xyz, pt_xyz, x_full, wk, wv, fc_delta, fc_gamma, idx)
     return (out, margins, idx) if return_idx else (out, margins)
 
@@ -552,22 +601,14 @@ def fused_knn_vector_attention_bucketed(
             block_q, n_cand, bucket_size, return_idx)
     check_one_device(q, query_xyz, pt_xyz, x_full, lo, hi, wk, wv, *fc_delta, *fc_gamma)
     check_attention_shapes(D)
-    if n_cand * bucket_size > MAX_CANDIDATE_POINTS:
-        raise ValueError(f"the CUDA kernel takes at most {MAX_CANDIDATE_POINTS} candidate "
-                         f"points a block, got {n_cand} x {bucket_size}")
     _lib.no_grad_guard("fused_knn_vector_attention_bucketed", q, query_xyz, pt_xyz, x_full,
                        wk, wv, *fc_delta, *fc_gamma)
     qxyz = query_xyz.float().contiguous()
     pxyz = pt_xyz.float().contiguous()
-    lo32, hi32 = lo.float().contiguous(), hi.float().contiguous()
-    cand = select_candidate_buckets(_pad_queries_edge(qxyz, block_q), lo32, hi32, block_q,
-                                    n_cand).contiguous()
-    nblk = _round_up(M, block_q) // block_q
-    idx = torch.empty((B, M, n_neighbor), dtype=torch.int32, device=q.device)
-    margins = torch.empty((B, nblk), dtype=torch.float32, device=q.device)
-    _lib.lib().call("poem_knn_select_bucketed", qxyz.data_ptr(), pxyz.data_ptr(), cand.data_ptr(),
-                    lo32.data_ptr(), hi32.data_ptr(), idx.data_ptr(), margins.data_ptr(),
-                    B, M, N, NB, n_neighbor, block_q, n_cand, bucket_size, _lib.stream_ptr(q))
+    cand = select_candidate_buckets(_pad_queries_edge(qxyz, block_q), lo.float(), hi.float(),
+                                    block_q, n_cand)
+    idx, margins = knn_select_bucketed(qxyz, pxyz, lo, hi, cand, n_neighbor, block_q, n_cand,
+                                       bucket_size)
     out = run_attention_core(MODE_KNN, q, qxyz, pxyz, idx, x_full, None, None, wk, wv, fc_delta,
                              fc_gamma, N, n_neighbor)
     fused_knn_vector_attention_bucketed.launches += 1

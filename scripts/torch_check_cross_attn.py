@@ -1,6 +1,7 @@
 """K3 / K3b (dense cross-attention, forward and backward) alone on one CUDA card.
 
     env PYTHONPATH=. python3 scripts/torch_check_cross_attn.py [--quick] [--time]
+        [--lse-repeat N [--out-dir DIR]]
 
 Builds the port's kernels, prints what ``ptxas -v`` said of the dense
 attention kernels (registers, spills, shared memory), then holds the
@@ -11,7 +12,13 @@ backward launches bit for bit. ``--quick`` keeps to two small shapes;
 ``--time`` adds CUDA-event times at B4, 799 x 4096 beside
 ``F.scaled_dot_product_attention`` and its backward, once call by call (the
 host's share of a call included) and once replayed from a CUDA graph (the
-kernels alone). Exits non-zero on any
+kernels alone). ``--lse-repeat N`` runs, in one process, the five float32 K3
+cases of ``chip_smoke.py``'s phase 1 on its inputs (D 256, D 128 / 512 /
+1024, and B 1 with 4100 keys) N times each, and holds every launch's row
+logsumexp against the plain version on the CPU copies (recomputed every 10
+launches), on the card (float32, TF32 off) and against a float64 logsumexp of
+the same logits; a launch that misses 1e-5 against any of them keeps its
+inputs and outputs under ``--out-dir`` (``tmp/k3_lse``). Exits non-zero on any
 disagreement. Needs no JAX.
 """
 
@@ -134,10 +141,62 @@ def timing(B=4, M=799, N=4096, heads=4) -> None:
               f"{g_bwd:.4f} ms ({2.5 * flops / g_bwd / 1e9:.0f} TFLOP/s)", flush=True)
 
 
+def lse_repeat(repeat: int, out_dir: str) -> bool:
+    """The float32 logsumexp of phase 1's K3 cases, ``repeat`` launches each."""
+    import os
+
+    import numpy as np
+
+    from chip_smoke import kernel_cases
+
+    cases = {n: c for n, c in kernel_cases(np.random.RandomState(0)).items() if c.get("lse")}
+    ok, saved = True, 0
+    for name, c in cases.items():
+        q, k = c["args"][:2]
+        kw = c["kw"]
+        dev = [t.cuda() for t in c["args"]]
+        qh = q.double().reshape(q.shape[0], q.shape[1], kw["num_heads"], -1).transpose(1, 2)
+        kh = k.double().reshape(k.shape[0], k.shape[1], kw["num_heads"], -1).transpose(1, 2)
+        ref64 = torch.logsumexp((qh @ kh.transpose(-1, -2)) * kw["sm_scale"], dim=-1)
+        card = cross_attn.plain_dense_cross_attention_lse(*dev[:2], **kw).cpu()
+        worst = dict(cpu=0.0, card=0.0, f64=0.0)
+        plain_cpu, cpu_vs_f64, bits = None, 0.0, set()
+        for i in range(repeat):
+            if i % 10 == 0:
+                plain_cpu = cross_attn.plain_dense_cross_attention_lse(q, k, **kw)
+                cpu_vs_f64 = max(cpu_vs_f64, float((plain_cpu.double() - ref64).abs().max()))
+            _, lse = cross_attn.dense_cross_attention_forward(*dev, **kw, return_lse=True)
+            lse = lse.cpu()
+            bits.add(hash(lse.numpy().tobytes()))
+            errs = dict(cpu=float((lse - plain_cpu).abs().max()),
+                        card=float((lse - card).abs().max()),
+                        f64=float((lse.double() - ref64).abs().max()))
+            for key, e in errs.items():
+                worst[key] = max(worst[key], e)
+            if max(errs.values()) > LSE_TOL:
+                ok = False
+                if saved < 3:
+                    os.makedirs(out_dir, exist_ok=True)
+                    path = os.path.join(out_dir, f"k3_lse_miss_{saved}.pt")
+                    torch.save(dict(case=name, launch=i, args=c["args"], kw=kw, lse=lse,
+                                    plain_cpu=plain_cpu, plain_card=card, ref64=ref64), path)
+                    saved += 1
+                print(f"  {name} launch {i}: lse against CPU {errs['cpu']:.3e}, card "
+                      f"{errs['card']:.3e}, float64 {errs['f64']:.3e}: MISS", flush=True)
+        print(f"  {name} [float32] {repeat} launches, {len(bits)} distinct outputs: worst lse "
+              f"against the CPU's plain {worst['cpu']:.3e}, the card's plain {worst['card']:.3e}, "
+              f"float64 {worst['f64']:.3e}; the card's plain against float64 "
+              f"{float((card.double() - ref64).abs().max()):.3e}, the CPU's {cpu_vs_f64:.3e}",
+              flush=True)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--lse-repeat", type=int, default=0)
+    ap.add_argument("--out-dir", default="tmp/k3_lse")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -146,6 +205,11 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip())
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     _lib.lib()
+    if args.lse_repeat:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ok = lse_repeat(args.lse_repeat, args.out_dir)
+        print("all ok" if ok else "FAILED")
+        return 0 if ok else 1
     print("ptxas:")
     ptxas_report()
     if args.quick:

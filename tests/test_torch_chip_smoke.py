@@ -83,19 +83,39 @@ def test_phase_core_shapes_rehearsal(on_cpu):
 
 def test_phase_graph_times_rehearsal(on_cpu):
     results = {}
-    chip_smoke.phase_graph_times(results, B=2, M=19, N=64, D=32, K=8, wide=48)
+    chip_smoke.phase_graph_times(results, B=2, M=19, N=64, D=32, K=8, wide=48, bucket_size=16,
+                                 n_cand=2, block_q=4)
     assert set(results) == {"graph_times"}
     k6 = {f"knn_vector_attention_trainable{what}/{case}/D{D}" for what in (" fwd + bwd", "_bwd")
           for case in ("self", "cross") for D in (32, 48)}
     sampler = {f"grid_sample_points_fused/B{b}_D{d}" for b, d in ((4, 128), (4, 512),
                                                                    (4, 1024), (16, 256))}
+    # the selections alone, with their bounds and plain versions' times
+    selections = {"knn_select (K1's selection alone)", "knn_select/self (K1's selection alone)",
+                  "knn_select_bucketed (K9's selection alone)"}
     assert set(results["graph_times"]) == sampler | {
-        "grid_sample_points_fused", "knn_select (K1's selection alone)",
-        "fused_knn_vector_attention",
+        "grid_sample_points_fused", "fused_knn_vector_attention",
         "fused_anchor_vector_attention", "fused_vector_attention", "scatter_add_rows/self",
-        "scatter_add_rows/cross", "index_add_/self", "index_add_/cross"} | k6
+        "scatter_add_rows/cross", "index_add_/self", "index_add_/cross"} | k6 | selections | {
+        "torch.topk of d2/cross (a yardstick)", "torch.topk of d2/self (a yardstick)",
+        "select_candidate_buckets (K9's candidate choice)",
+        "K9's attention (K1's chain at K9's indices)",
+        "fused_knn_vector_attention_bucketed (K9 whole)"}
     for name, row in results["graph_times"].items():
-        assert set(row) == {"ms", "graph_ms"} | ({"bound_ms"} if "grid_sample" in name else set())
+        assert set(row) == {"ms", "graph_ms"} | ({"bound_ms"} if "grid_sample" in name else set()) \
+            | ({"bound_ms", "bound_by", "plain_ms"} if name in selections else set())
+    json.dumps(results)
+
+
+def test_phase_selection_shapes_rehearsal(on_cpu):
+    """Phase 1a's selections at tiny shapes: K1's with packed keys, K = N and
+    duplicated points, K9's with a ragged block, the sentinel margin and a
+    bucket size no multiple of 32; both sides run the plain version."""
+    results = {}
+    chip_smoke.phase_selection_shapes(results, Ns=(1, 33), Ms=(1, 5), Ks=(1, 8), k9_cases=(
+        (2, 13, 256, 16, 4, 3, 8, True), (1, 7, 120, 24, 4, 5, 24, False)))
+    # N 1: K 1; N 33: K 1, 8, 33; each with and without duplicates, at two M
+    assert results["selection_shapes"] == dict(knn_select=16, knn_select_bucketed=2)
     json.dumps(results)
 
 

@@ -742,6 +742,74 @@ def test_knn_vector_attention_bucketed_refuses(cuda):
                                                      n_neighbor=8, bucket_size=32)
 
 
+def _ball_cloud(rs, n, dup):
+    """n points in the unit ball; ``dup``: every point twice (exact ties)."""
+    x = rs.randn((n + 1) // 2 if dup else n, 3)
+    x = x / np.linalg.norm(x, axis=1, keepdims=True) * rs.rand(len(x), 1) ** (1 / 3)
+    if dup:
+        x = np.concatenate([x, x])[:n]
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("M", [1, 65])
+@pytest.mark.parametrize("N", [1, 33, 799, 4096, 5000, 7000])
+def test_knn_select_shapes(cuda, N, M, dup):
+    """K1's selection (``csrc/select_core.cuh``) equal to its plain version at K
+    = 1, 32, 48 and N: packed keys up to 4096 points, exact keys above, the
+    cloud read from L2 above 6144; with every point twice (ties to the lower
+    index); two launches the same bits."""
+    rs = np.random.RandomState(N + M + dup)
+    B = 2
+    pxyz = _ball_cloud(rs, N, dup)[None].expand(B, N, 3).contiguous().to(cuda)
+    qxyz = _mk(rs, B, M, 3, scale=0.4).to(cuda)
+    for K in sorted({k for k in (1, 32, 48, N) if k <= N}):
+        got = knn_attn.knn_select(qxyz, pxyz, K)
+        again = knn_attn.knn_select(qxyz, pxyz, K)
+        want = knn_attn.knn_select_plain(qxyz, pxyz, K)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (B, M, K)
+        assert torch.equal(got, want), (K, int((got != want).sum()))
+        assert torch.equal(got, again), K
+
+
+@pytest.mark.parametrize("B,M,N,SB,BQ,C,K,tight", [
+    (4, 799, 4096, 128, 32, 8, 32, True),      # the defaults; a ragged last block
+    (2, 203, 1000, 40, 7, 3, 48, False),       # bucket size no multiple of 32
+    (2, 100, 768, 96, 50, 1, 16, True),        # one candidate bucket
+    (2, 65, 16384, 512, 16, 12, 32, True),     # 6144 candidates: the most staged
+    (2, 65, 16384, 512, 16, 13, 32, False),    # 6656: read from L2
+    (1, 40, 32768, 1024, 32, 32, 32, True),    # 32 768, every bucket a candidate
+    (2, 65, 600, 24, 64, 25, 48, False),       # every bucket a candidate, one ragged block
+    (1, 9, 360, 45, 4, 2, 90, False),          # K = n_cand x bucket size
+])
+def test_knn_select_bucketed_shapes(cuda, B, M, N, SB, BQ, C, K, tight):
+    """K9's selection alone equal to its plain version: indices identical,
+    margins certified alike and within 1e-6 (the sentinel where every bucket is
+    a candidate), two launches the same bits."""
+    rs = np.random.RandomState(N + C)
+    cloud = rs.randn(N, 3).astype(np.float32)
+    perm, lo, hi = points.build_balanced_buckets(cloud, SB)
+    q = cloud[7] + rs.randn(B, M, 3).astype(np.float32) * (0.05 if tight else 1.0)
+    qxyz, lo, hi = (torch.from_numpy(a).to(cuda) for a in (q, lo, hi))
+    pxyz = torch.from_numpy(cloud[perm])[None].expand(B, N, 3).contiguous().to(cuda)
+    cand = knn_attn.select_candidate_buckets(knn_attn._pad_queries_edge(qxyz, BQ), lo, hi, BQ, C)
+    args = (qxyz, pxyz, lo, hi, cand, K, BQ, C, SB)
+    idx, margins = knn_attn.knn_select_bucketed(*args)
+    idx2, margins2 = knn_attn.knn_select_bucketed(*args)
+    widx, wm = knn_attn.knn_select_bucketed_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, widx) and torch.equal(idx, idx2)
+    assert torch.equal(margins, margins2)
+    assert margins.shape == wm.shape == (B, -(-M // BQ))
+    assert torch.equal(margins >= 0, wm >= 0)
+    finite = wm < 1e30
+    assert torch.equal(margins < 1e30, finite)
+    assert float((margins - wm)[finite].abs().max() if finite.any() else 0.0) <= 1e-6
+    if C * SB == N:
+        assert bool((margins == knn_attn.MARGIN_SENTINEL).all())
+
+
 @pytest.mark.parametrize("name", select.VARIANTS)
 @pytest.mark.parametrize("B,M,N,K,BQ,CJ", [(2, 64, 512, 8, 16, 4), (3, 130, 4096, 32, 65, 16),
                                            (1, 12, 1000, 30, 4, 5), (2, 10, 37, 37, 5, 37)])
