@@ -20,7 +20,10 @@ non-zero:
    one (1e-5 absolute) in every K3 case, each side's distance from a float64
    logsumexp logged beside it; K1's bound from its least work (three
    products a row, the k / v projection once a cloud point), the TPU kernel's
-   five products a row beside it;
+   five products a row beside it; and the eval kernels at the synthetic
+   ResNet-18 model's shapes (width 64, K = 8, 256 BPS points): K1 self and
+   cross, K2, K3 at head dim 16 over 256 and 4096 keys (beside SDPA), K4 on 2
+   views of 8x8 maps, K5 on a batch of 1 and 2 views;
 1a. the attention core at neighbour counts that do not divide 32 (8, 24,
    48) and at 1 and 65 queries, D = 256 and D = 1024 at K = 24: K1, K2, K8
    and K6b (the backward of K6) against their plain versions on the card, K1's
@@ -42,7 +45,8 @@ non-zero:
    launches bit-identical). K6's and K6b's gradients: float32 to 1e-4 of each
    peak; bfloat16 against a float32 autograd of the plain version at the same
    bf16-rounded inputs, within the larger of the bfloat16 recompute's error
-   and 2e-2 of the peak;
+   and 2e-2 of the peak; the same cases at the synthetic model's D = 64, K = 8,
+   N = 256 (K3b there at head dim 16, also over 4096 keys);
 1e. bf16 at the batch-4 shapes, call by call and replayed from a CUDA
    graph: K4 (also at D = 128, 512, 1024 and at batch 16, with its share
    of the bound), K1 (cross), K2, K8, and K7 (self, cross) beside
@@ -94,10 +98,23 @@ non-zero:
    per step, a loss under fixed noise that falls over the 12 steps, step time
    and peak memory;
    (d) phase (b) for medium_MANO, with the pose and shape terms.
+5. the front doors, the port's train and eval CLIs (``cli/train.py:train``,
+   ``cli/eval.py:evaluate`` on config dicts): (a) ``synthetic_smoke`` as
+   shipped, one epoch of 16 steps at B4 from the prefetch feed, validation and
+   a checkpoint; (b) the same on fixed sets for two epochs, and again resumed
+   from the first epoch's snapshot: step, epoch and the next loss equal; (c)
+   the eval CLI on (a)'s checkpoint with ``--eval_extra auc``; (d) medium with
+   synthetic 256 px data, 1-8 of 8 views: 4 train steps at B8 with a 2-batch
+   validation, then the eval CLI on its checkpoint. Each run's launches are
+   counted around it and must equal its steps' and forwards' counts; losses
+   finite, measures finite metres; ms/step (CUDA events), samples/s, peak
+   GiB, checkpoint bytes and write / read seconds, eval samples/s.
 
 The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
-K9's also their selections' times from phase 1e under ``selection``); the last
+K9's also their selections' times from phase 1e under ``selection``; K3's and
+K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
+on phase 5's paths under ``front_door_launches``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
 without a CUDA device it fails before printing any result.
 """
@@ -311,6 +328,38 @@ def sdpa_heads(q, k, v, num_heads):
     return [t.reshape(t.shape[0], t.shape[1], num_heads, -1).transpose(1, 2) for t in (q, k, v)]
 
 
+def library_sdpa(args, kw):
+    """K3's library call: ``F.scaled_dot_product_attention`` on the same heads."""
+    qh, kh, vh = sdpa_heads(*args, kw["num_heads"])
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=kw["sm_scale"])
+
+
+def library_grid_sample(args, kw):
+    """K4's library call: ``F.grid_sample`` of the NCHW maps at the points."""
+    feat, coords = args
+    nchw, grid = feat.permute(0, 3, 1, 2), coords[:, :, None, :].to(feat.dtype)
+    return lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+
+def library_gather(args, kw):
+    """K5's library call: ``torch.gather`` of the scrambled rows (index made beforehand)."""
+    flat, nv = args
+    rows = flat.reshape(flat.shape[0], -1, kw["C"])
+    index = scramble.scramble_row_index(nv, kw["V"], rows.shape[1] // kw["V"])
+    index = index[..., None].expand(-1, -1, kw["C"])
+    return lambda: torch.gather(rows, 1, index)
+
+
+def scramble_in_bytes_of(args, kw):
+    """K5's input bytes: source rows 0 .. (NS - 1) * n_b + V - 1 of each sample,
+    clamped, and n_val."""
+    flat, nv = args
+    NS = flat.shape[1] // (kw["V"] * kw["C"])
+    rows = sum(min((NS - 1) * int(n) + kw["V"], kw["V"] * NS) for n in nv)
+    return rows * kw["C"] * flat.element_size() + nv.numel() * 4
+
+
 def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8,
                  wide=(128, 512, 1024)):
     """Inputs at the shapes the serving phases' batch-4 requests give each kernel
@@ -330,30 +379,6 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
     wk, wv = f(D, D) / 16, f(D, D) / 16
     fcd, fcg = _mlps(f, D)
     n_val = torch.tensor(([3, V, 2, 6] * B)[:B], dtype=torch.int64)  # valid views per sample
-
-    def sdpa(args, kw):
-        qh, kh, vh = sdpa_heads(*args, kw["num_heads"])
-        return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=kw["sm_scale"])
-
-    def grid_sample(args, kw):
-        feat, coords = args
-        nchw, grid = feat.permute(0, 3, 1, 2), coords[:, :, None, :].to(feat.dtype)
-        return lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                                     align_corners=False)
-
-    def gather(args, kw):
-        flat, nv = args
-        rows = flat.reshape(B, -1, kw["C"])
-        index = scramble.scramble_row_index(nv, kw["V"], rows.shape[1] // kw["V"])
-        index = index[..., None].expand(-1, -1, kw["C"])
-        return lambda: torch.gather(rows, 1, index)
-
-    def scramble_in_bytes(args, kw):
-        # source rows 0 .. (NS - 1) * n_b + V - 1 of each sample, clamped, and n_val
-        flat, nv = args
-        NS = flat.shape[1] // (kw["V"] * kw["C"])
-        rows = sum(min((NS - 1) * int(n) + kw["V"], kw["V"] * NS) for n in nv)
-        return rows * kw["C"] * flat.element_size() + nv.numel() * 4
 
     cases = {
         "fused_knn_vector_attention/self": dict(
@@ -378,17 +403,17 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
         "dense_cross_attention": dict(
             kernel="dense_cross_attention", args=(q, f(B, N, D), f(B, N, D)),
             kw=dict(num_heads=4, sm_scale=1 / 8), plain=cross_attn.plain_dense_cross_attention,
-            flops=4.0 * B * M * N * D, library=sdpa, lse=True),
+            flops=4.0 * B * M * N * D, library=library_sdpa, lse=True),
         "grid_sample_points_fused": dict(
             kernel="grid_sample_points_fused",
             args=(f(B * V, 16, 16, D), torch.from_numpy(rs.uniform(-1.2, 1.2, (B * V, N, 2))
                                                         .astype(np.float32))),
             kw={}, plain=bilinear.plain_grid_sample_points,
-            flops=8.0 * B * V * N * D, library=grid_sample, exact=True),
+            flops=8.0 * B * V * N * D, library=library_grid_sample, exact=True),
         "scrambled_merge_gather": dict(
             kernel="scrambled_merge_gather", args=(f(B, V * N * D), n_val), kw=dict(V=V, C=D),
-            plain=scramble.plain_scrambled_merge_gather, flops=0.0, library=gather,
-            in_bytes=scramble_in_bytes, exact=True),
+            plain=scramble.plain_scrambled_merge_gather, flops=0.0, library=library_gather,
+            in_bytes=scramble_in_bytes_of, exact=True),
         "fused_vector_attention": dict(
             kernel="fused_vector_attention",
             args=(q, f(B, M, K, D), f(B, M, K, D), f(B, M, K, 3) * 0.4, fcd, fcg), kw={},
@@ -418,29 +443,74 @@ def kernel_cases(rs: np.random.RandomState, B=4, M=799, D=256, K=32, N=4096, V=8
             kernel="dense_cross_attention", args=(qw, fw(B, N, Dw), fw(B, N, Dw)),
             kw=dict(num_heads=4, sm_scale=1 / math.sqrt(Dw // 4)),
             plain=cross_attn.plain_dense_cross_attention, flops=4.0 * B * M * N * Dw,
-            library=sdpa, plain_on_card=True, lse=True)
+            library=library_sdpa, plain_on_card=True, lse=True)
         cases[f"wide/grid_sample_points_fused/D{Dw}"] = dict(
             kernel="grid_sample_points_fused",
             args=(fw(B * V, 16, 16, Dw), cases["grid_sample_points_fused"]["args"][1]), kw={},
             plain=bilinear.plain_grid_sample_points, flops=8.0 * B * V * N * Dw,
-            library=grid_sample, plain_on_card=True, exact=True)
+            library=library_grid_sample, plain_on_card=True, exact=True)
         cases[f"wide/scrambled_merge_gather/D{Dw}"] = dict(
             kernel="scrambled_merge_gather", args=(fw(B, V * N * Dw), n_val),
             kw=dict(V=V, C=Dw), plain=scramble.plain_scrambled_merge_gather, flops=0.0,
-            library=gather, in_bytes=scramble_in_bytes, exact=True, plain_on_card=True)
+            library=library_gather, in_bytes=scramble_in_bytes_of, exact=True, plain_on_card=True)
     # K4 at medium's batch 16: 128 maps
     cases[f"wide/grid_sample_points_fused/B{4 * B}_D{D}"] = dict(
         kernel="grid_sample_points_fused",
         args=(f(4 * B * V, 16, 16, D), torch.from_numpy(
             rs.uniform(-1.2, 1.2, (4 * B * V, N, 2)).astype(np.float32))), kw={},
         plain=bilinear.plain_grid_sample_points, flops=32.0 * B * V * N * D,
-        library=grid_sample, plain_on_card=True, exact=True)
+        library=library_grid_sample, plain_on_card=True, exact=True)
     # K3 where no tile divides the keys, one sample
     cases[f"ragged/dense_cross_attention/B1_N{N + 4}"] = dict(
         kernel="dense_cross_attention", args=(f(1, M, D), f(1, N + 4, D), f(1, N + 4, D)),
         kw=dict(num_heads=4, sm_scale=1 / math.sqrt(D // 4)),
         plain=cross_attn.plain_dense_cross_attention, flops=4.0 * M * (N + 4) * D,
-        library=sdpa, plain_on_card=True, lse=True)
+        library=library_sdpa, plain_on_card=True, lse=True)
+    return cases
+
+
+def synthetic_kernel_cases(rs: np.random.RandomState, B=4, M=799, D=64, K=8, N=256, V=2,
+                           HW=8, N_big=4096, A=32):
+    """The eval kernels at the shapes the synthetic ResNet-18 model gives them
+    (``configs/synthetic_smoke.yaml``: width 64 in 4 heads of 16, 256 BPS points,
+    K = 8, 2 views of 8x8 maps at 64 px), named ``synthetic/...``: K1 self and
+    cross, K2, K3 at head dim 16 over N and ``N_big`` keys, K4 and K5 on a batch
+    that mixes 1 and 2 views. Cases as :func:`kernel_cases` makes them."""
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    s = 1 / math.sqrt(D)
+    q, qxyz = f(B, M, D), f(B, M, 3) * 0.4
+    cloud = _ball(rs, N)[None].expand(B, N, 3).contiguous()
+    fcd, fcg = _mlps(f, D)
+    n_val = torch.tensor(([1, V, V, 1] * B)[:B], dtype=torch.int64)
+    cases = {}
+    for name, (pxyz, n_pts) in (("self", (qxyz, M)), ("cross", (cloud, N))):
+        cases[f"synthetic/fused_knn_vector_attention/{name}_D{D}_K{K}"] = dict(
+            kernel="fused_knn_vector_attention",
+            args=(q, qxyz, pxyz, f(B, n_pts, D), f(D, D) * s, f(D, D) * s, fcd, fcg),
+            kw=dict(n_neighbor=K, return_idx=True),
+            plain=knn_attn.plain_fused_knn_vector_attention,
+            flops=knn_attention_flops(B, M, K, n_pts, D),
+            flops_five=attention_flops(B * M * K, D, 5) + 8.0 * B * M * n_pts)
+    cases[f"synthetic/fused_anchor_vector_attention/D{D}"] = dict(
+        kernel="fused_anchor_vector_attention",
+        args=(q, qxyz, f(B, A, D), f(B, A, D), _ball(rs, A), fcd, fcg), kw={},
+        plain=knn_attn.plain_fused_anchor_vector_attention, flops=attention_flops(B * M * A, D, 3))
+    for n in (N, N_big):
+        cases[f"synthetic/dense_cross_attention/hd{D // 4}_N{n}"] = dict(
+            kernel="dense_cross_attention", args=(q, f(B, n, D), f(B, n, D)),
+            kw=dict(num_heads=4, sm_scale=1 / math.sqrt(D // 4)),
+            plain=cross_attn.plain_dense_cross_attention, flops=4.0 * B * M * n * D,
+            library=library_sdpa, lse=True)
+    cases[f"synthetic/grid_sample_points_fused/V{V}_{HW}x{HW}_D{D}"] = dict(
+        kernel="grid_sample_points_fused",
+        args=(f(B * V, HW, HW, D), torch.from_numpy(rs.uniform(-1.2, 1.2, (B * V, N, 2))
+                                                    .astype(np.float32))),
+        kw={}, plain=bilinear.plain_grid_sample_points, flops=8.0 * B * V * N * D,
+        library=library_grid_sample, exact=True)
+    cases[f"synthetic/scrambled_merge_gather/V{V}_D{D}"] = dict(
+        kernel="scrambled_merge_gather", args=(f(B, V * N * D), n_val), kw=dict(V=V, C=D),
+        plain=scramble.plain_scrambled_merge_gather, flops=0.0,
+        library=library_gather, in_bytes=scramble_in_bytes_of, exact=True)
     return cases
 
 
@@ -471,10 +541,12 @@ def check_lse(name, got, want, dtype, ref64=None):
     return err
 
 
-def phase_kernels(results, **shapes):
+def phase_kernels(results, synthetic=None, **shapes):
     log("phase 1: kernels vs plain versions")
     rs = np.random.RandomState(0)
-    for case, c in kernel_cases(rs, **shapes).items():
+    cases = kernel_cases(rs, **shapes)
+    cases.update(synthetic_kernel_cases(np.random.RandomState(10), **(synthetic or {})))
+    for case, c in cases.items():
         kname, args, kw, plain = c["kernel"], c["args"], c["kw"], c["plain"]
         for dtype in (torch.float32, torch.bfloat16):
             # geometry (xyz, coords) stays float32; features and weights take dtype
@@ -970,17 +1042,24 @@ def k6b_case(results, name, ts, idx, dout, dtype, iters=None):
     return got
 
 
-def phase_train_kernels(results, B=4, M=799, D=256, K=32, N=4096, wide=(128, 512, 1024)):
+def phase_train_kernels(results, B=4, M=799, D=256, K=32, N=4096, wide=(128, 512, 1024),
+                        synthetic=(64, 8, 256)):
     """Phase 1b: K3b, K6 and K7 against their plain versions at the train path's
     shapes: at D on CPU copies of the inputs, at the ``wide`` widths of the other
-    tiers on the card; then K3b alone at one sample and a key count that no
-    tile divides."""
+    tiers on the card; at the synthetic ResNet-18 model's (D, K, N) on CPU copies,
+    K3b there (head dim D / 4 = 16) also over N keys; then K3b alone at one
+    sample and a key count that no tile divides."""
     log("phase 1b: training kernels vs plain versions")
     rs = np.random.RandomState(1)
     train_kernel_cases(results, rs, B, M, D, K, N, on_card=False)
     for Dw in wide:
         train_kernel_cases(results, rs, B, M, Dw, K, N, on_card=True)
     f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    Ds, Ks, Ns = synthetic
+    train_kernel_cases(results, rs, B, M, Ds, Ks, Ns, on_card=False, prefix="synthetic")
+    dense_bwd_case(results, f"synthetic/dense_cross_attention_bwd/D{Ds}_N{N}",
+                   (f(B, M, Ds), f(B, N, Ds), f(B, N, Ds), f(B, M, Ds)), 4,
+                   1 / math.sqrt(Ds // 4), on_card=False, iters=10)
     dense_bwd_case(results, f"ragged/dense_cross_attention_bwd/B1_N{N + 4}",
                    (f(1, M, D), f(1, N + 4, D), f(1, N + 4, D), f(1, M, D)), 4,
                    1 / math.sqrt(D // 4), on_card=True, iters=5)
@@ -1040,12 +1119,14 @@ def dense_bwd_case(results, name, qkvd, heads, sm_scale, on_card, iters):
             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def train_kernel_cases(results, rs, B, M, D, K, N, on_card):
+def train_kernel_cases(results, rs, B, M, D, K, N, on_card, prefix=None):
     """K3b (4 heads of D / 4), K6 (self and cross) and K7 (M and N rows) at width
     D. ``on_card``: a width of another tier, named ``wide/<kernel>/.../D<D>`` and
-    held against the plain version on the card (the CPU would take minutes)."""
+    held against the plain version on the card (the CPU would take minutes);
+    ``prefix`` names the cases ``<prefix>/<kernel>/.../D<D>`` instead."""
     f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
-    tag = (lambda name: f"wide/{name}/D{D}") if on_card else (lambda name: name)
+    prefix = prefix or ("wide" if on_card else None)
+    tag = (lambda name: f"{prefix}/{name}/D{D}") if prefix else (lambda name: name)
     iters = 5 if on_card else 10
     heads, sm_scale, s = 4, 1 / math.sqrt(D // 4), 1 / math.sqrt(D)
 
@@ -1376,6 +1457,7 @@ def main() -> int:
     phase_train_parity(results)
     phase_train_tiers(results)
     phase_train_parity(results, "medium_MANO")
+    front = phase_front_doors(results)
     path_launches = {
         **{k: launches[k] for k, n in LAUNCHES_PER_FORWARD.items() if n},
         "scrambled_merge_gather": tier_launches["scrambled_merge_gather"],
@@ -1430,6 +1512,27 @@ def main() -> int:
         candidates_graph_ms=gt["select_candidate_buckets (K9's candidate choice)"]["graph_ms"],
         attention_graph_ms=gt["K9's attention (K1's chain at K9's indices)"]["graph_ms"],
         whole_graph_ms=gt["fused_knn_vector_attention_bucketed (K9 whole)"]["graph_ms"])
+    # K3 / K3b at the synthetic models' head dim of 16 (phases 1 and 1b), and every
+    # kernel's launches on the front doors' paths (phase 5)
+    for name, prefix in (("dense_cross_attention", "synthetic/dense_cross_attention/"),
+                         ("dense_cross_attention_bwd", "synthetic/dense_cross_attention_bwd/")):
+        by_name[name]["head_dim_16"] = {
+            case[len(prefix):]: {k: r["bfloat16"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            | {"max_abs_err_f32": r["float32"]["max_abs_err"],
+               "lse_max_abs_err": max(r[d]["lse_max_abs_err"] for d in r)}
+            for case, r in results.items() if case.startswith(prefix)}
+    for e in entries:
+        e["front_door_launches"] = {path: front[path]["launches"][e["name"]] for path in (
+            "synthetic_train", "synthetic_eval", "medium_train", "medium_eval")}
+    # every kernel the synthetic paths run launched there
+    quiet = [k for k, n in LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items()
+             if n and not front["synthetic_train"]["launches"][k]]
+    quiet += [k for k, n in LAUNCHES_PER_SYNTHETIC_FORWARD.items()
+              if n and not front["synthetic_eval"]["launches"][k]]
+    if quiet or not (front["synthetic_eval"]["launches"]["scrambled_merge_gather"]
+                     or front["medium_eval"]["launches"]["scrambled_merge_gather"]):
+        raise AssertionError(f"kernels the front doors did not launch: {quiet or 'K5'}")
     missing = [e["name"] for e in entries if e["launches"] < 1]
     if missing:
         raise AssertionError(f"kernels that no path launched: {missing}")
@@ -2131,6 +2234,229 @@ def phase_train_tiers(results, names=("small", "medium_MANO", "large", "huge"), 
         del model, trainer, batch
         torch.cuda.empty_cache()
     results["train_tiers"] = tiers
+
+
+def _launch_counts(**counts):
+    """A launch count for every kernel: the given ones, the others 0."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+# launches of the synthetic ResNet-18 model (2 decoder blocks, every config of
+# configs/synthetic_*.yaml): per eval forward, two dense attentions a block, K2
+# twice in block 0, K1 twice in block 1, K4 once (K5 once more on a batch whose
+# samples do not all use every view); per train step K3 / K3b in both blocks,
+# K6 (its forward K1) / K6b / K7 in block 1
+LAUNCHES_PER_SYNTHETIC_FORWARD = _launch_counts(
+    dense_cross_attention=4, fused_anchor_vector_attention=2, fused_knn_vector_attention=2,
+    grid_sample_points_fused=1)
+LAUNCHES_PER_SYNTHETIC_TRAIN_STEP = _launch_counts(
+    dense_cross_attention=4, dense_cross_attention_bwd=4, fused_knn_vector_attention=2,
+    knn_vector_attention_trainable=2, knn_vector_attention_trainable_bwd=2, scatter_add_rows=2)
+
+
+def _mixed_batches(data_cfg, batch_size, view_max, epoch_size):
+    """Batches of the dataset ``data_cfg`` (drawn here on the host from its seed)
+    whose samples do not all use ``view_max`` views: each runs K5 once in eval."""
+    from poem_v2_tpu_torch.data import batch_iterator, create_dataset
+
+    ds = create_dataset(data_cfg)
+    return sum(int((b["view_mask"].sum(1) != view_max).any())
+               for b in batch_iterator(ds, batch_size, view_max, epoch_size))
+
+
+def _expected(steps, forwards, mixed, per_step, per_forward):
+    return {k: steps * per_step[k] + forwards * per_forward[k]
+            + (mixed if k == "scrambled_merge_gather" else 0) for k in KERNELS}
+
+
+def _drive_cli(fn, cfg_dict, argv, timing=None):
+    """One run of a CLI's body (``train`` or ``evaluate``) on ``cfg_dict`` with the
+    command line ``argv``, the launch counts set to 0 before it and read after.
+    Returns (its result, launches, seconds on the host clock, peak GiB on the card)."""
+    from poem_v2_tpu_torch.cli.opt import parse_exp_args
+    from poem_v2_tpu_torch.utils.config import get_config
+
+    args = parse_exp_args(["-c", "<dict>", "--exp_id", "default", *argv])
+    cfg = get_config(cfg_dict, arg=args, merge=True)
+    on_card = args.device.startswith("cuda")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    res = fn(cfg, args, timing) if timing is not None else fn(cfg, args)
+    if on_card:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    return res, read_launches(), secs, peak
+
+
+def _check_measures(name, results):
+    """Finite measures in metres: mean errors of a random or briefly trained model
+    lie between 0 and a metre (millimetres would read tens), AUCs in [0, 1]."""
+    bad = {k: v for k, v in results.items()
+           if not (math.isfinite(v) and (0.0 <= v <= 1.0 if k.startswith("auc")
+                                         else 0.0 < v < 1.0))}
+    if bad:
+        raise AssertionError(f"{name}: measures not finite metres: {bad}")
+
+
+def _check_launches(name, got, want):
+    log(f"  {name} launches: " + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+    if got != want:
+        raise AssertionError(f"{name}: launches {got} != {want}")
+
+
+def _train_summary(name, run, secs, peak, batch, card, warmup=2):
+    ms = run["step_ms"][warmup:] or run["step_ms"]
+    med = float(np.median(ms))
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"{name}: non-finite losses {run['losses']}")
+    ck = run["checkpoint"]
+    log(f"  {name} [{card}]: {len(run['losses'])} steps in {secs:.2f} s (model build, data and "
+        f"validation included); step ms (CUDA events) median {med:.2f} over steps "
+        f"{warmup + 1}-{len(run['step_ms'])} ({', '.join(f'{t:.1f}' for t in run['step_ms'])}), "
+        f"{batch * 1e3 / med:.2f} samples/s; peak {peak:.2f} GiB; checkpoint "
+        f"{ck['bytes']} bytes written in {ck['write_s']:.3f} s; loss "
+        f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}")
+    return dict(steps=len(run["losses"]), seconds=secs, median_step_ms=med,
+                step_ms=run["step_ms"], samples_per_s=batch * 1e3 / med, peak_gib=peak,
+                ckpt_bytes=ck["bytes"], ckpt_write_s=ck["write_s"], losses=run["losses"],
+                val=run["val"])
+
+
+def phase_front_doors(results, device="cuda", dtype="bf16", smoke_epoch=64, medium_model=None,
+                      medium_image=256, medium_views=8, medium_batch=8, medium_train=32,
+                      medium_test=16):
+    """Phase 5: the port's train and eval CLIs (their ``train`` / ``evaluate``
+    bodies on config dicts, as ``python -m poem_v2_tpu_torch.cli.train`` runs them)
+    on the synthetic ResNet-18 model (``smoke_epoch`` samples an epoch) and on
+    medium (``medium_model``) with synthetic data, in a temporary directory
+    (their ``exp/`` goes there). A rehearsal on the CPU passes small ones."""
+    import copy
+    import os
+    import tempfile
+
+    from poem_v2_tpu_torch.cli import eval as eval_cli, train as train_cli
+    from poem_v2_tpu_torch.configs import MEDIUM, SYNTHETIC_SMOKE
+
+    log("phase 5: the train and eval CLIs: synthetic_smoke (ResNet-18, width 64, 4 heads of "
+        "16), a resumed run, and medium with synthetic data")
+    card = gpu_line()
+    out = {}
+    cwd = os.getcwd()
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # (a) synthetic_smoke as shipped: one epoch of 16 steps at B4 from the
+            # streaming feed, validation on 4 batches, a checkpoint
+            smoke = copy.deepcopy(SYNTHETIC_SMOKE)
+            smoke["DATASET"]["TRAIN"]["EPOCH_SIZE"] = smoke_epoch
+            spe = smoke_epoch // 4  # steps an epoch
+            argv = ["--view_max", "2", "-b", "4", "--device", device, "--dtype", dtype]
+            run, got, secs, peak = _drive_cli(train_cli.train, smoke, argv)
+            test = smoke["DATASET"]["TEST"]
+            mixed = _mixed_batches(test, 4, 2, test["EPOCH_SIZE"])
+            n_val = test["EPOCH_SIZE"] // 4
+            _check_launches("synthetic train CLI", got, _expected(
+                spe, n_val, mixed, LAUNCHES_PER_SYNTHETIC_TRAIN_STEP,
+                LAUNCHES_PER_SYNTHETIC_FORWARD))
+            _check_measures("synthetic validation", run["val"][0])
+            out["synthetic_train"] = dict(_train_summary("synthetic_smoke train", run, secs,
+                                                         peak, 4, card),
+                                          launches=got, mixed_val_batches=mixed)
+            if device.startswith("cuda"):  # where the step's time goes: one more, profiled
+                from poem_v2_tpu_torch.data import batch_iterator, create_dataset
+
+                sample = next(iter(batch_iterator(create_dataset(smoke["DATASET"]["TRAIN"]), 4,
+                                                  2, 4)))
+                out["synthetic_train"]["profile"] = profile_train_step(
+                    run["trainer"], run["trainer"].to_device(sample),
+                    out["synthetic_train"]["median_step_ms"])
+            smoke_ckpt = run["checkpoint"]["path"]
+
+            # (b) resume: smoke on fixed train and test sets, two epochs uninterrupted,
+            # then again from the first epoch's snapshot
+            fixed = copy.deepcopy(smoke)
+            fixed["TRAIN"]["EPOCH"] = 2
+            for part in ("TRAIN", "TEST"):
+                fixed["DATASET"][part]["FIXED_SET"] = True
+            whole, _, _, _ = _drive_cli(train_cli.train, fixed, argv)
+            snap = os.path.join(whole["dump_path"], "checkpoints", "checkpoint_1.pt")
+            again, _, secs_r, _ = _drive_cli(train_cli.train, fixed, argv + ["--resume", snap])
+            rs_, rsd = again["resumed"], whole["losses"][spe:]
+            if (again["start_epoch"], rs_["step"], rs_["epoch"],
+                    again["trainer"].global_step) != (1, spe, 0, 2 * spe):
+                raise AssertionError(f"resume: epoch {again['start_epoch']}, step {rs_['step']}, "
+                                     f"checkpoint epoch {rs_['epoch']}, final step "
+                                     f"{again['trainer'].global_step}")
+            rel = [abs(a - b) / abs(b) for a, b in zip(again["losses"], rsd)]
+            log(f"  resumed from {os.path.basename(snap)} (read in {rs_['read_s']:.3f} s) at step "
+                f"{spe}, epoch 1: next loss {again['losses'][0]!r} vs uninterrupted {rsd[0]!r} "
+                f"(bit-equal: {again['losses'][0] == rsd[0]}); the epoch's {spe} losses differ by "
+                f"at most {max(rel):.2e} relative")
+            if not rel[0] <= 1e-6:
+                raise AssertionError(f"resume: next loss {again['losses'][0]} != {rsd[0]}")
+            out["resume"] = dict(next_loss=again["losses"][0], uninterrupted=rsd[0],
+                                 max_rel_diff_epoch=max(rel), read_s=rs_["read_s"])
+
+            # (c) the eval CLI on (a)'s checkpoint with AUC
+            timing = {}
+            res, got, secs, peak = _drive_cli(
+                eval_cli.evaluate, smoke, argv + ["--eval_extra", "auc", "--reload", smoke_ckpt],
+                timing)
+            _check_launches("synthetic eval CLI", got, _expected(
+                0, n_val, mixed, LAUNCHES_PER_SYNTHETIC_TRAIN_STEP,
+                LAUNCHES_PER_SYNTHETIC_FORWARD))
+            _check_measures("synthetic eval", res)
+            log(f"  synthetic eval CLI [{card}]: {timing['samples']} samples, "
+                f"{timing['samples'] / timing['seconds']:.1f} samples/s (data drawn on the host "
+                f"included); peak {peak:.2f} GiB; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in res.items()))
+            out["synthetic_eval"] = dict(results=res, samples_per_s=timing["samples"]
+                                         / timing["seconds"], peak_gib=peak, launches=got)
+
+            # (d) medium (HRNet-W40, width 256, 4096 BPS points) on synthetic 256 px data,
+            # 1-8 valid views of 8: 4 train steps at B8, validation on 2 batches, then
+            # the eval CLI on its checkpoint
+            V, Bm = medium_views, medium_batch
+            data = {"TYPE": "Synthetic", "VIEW_MAX": V, "VIEW_RANGE": [1, V],
+                    "IMAGE_SIZE": medium_image, "EPOCH_SIZE": medium_train}
+            medium = copy.deepcopy(MEDIUM)
+            medium["MODEL"] = copy.deepcopy(medium_model or MEDIUM["MODEL"])
+            medium["TRAIN"]["EPOCH"] = 1
+            medium["DATA_PRESET"]["IMAGE_SIZE"] = [medium_image, medium_image]
+            medium["DATASET"] = {"TRAIN": data, "TEST": dict(data, EPOCH_SIZE=medium_test)}
+            argv_m = ["--view_max", str(V), "-b", str(Bm), "--device", device, "--dtype", dtype]
+            run, got, secs, peak = _drive_cli(train_cli.train, medium, argv_m)
+            mixed_m = _mixed_batches(medium["DATASET"]["TEST"], Bm, V, medium_test)
+            _check_launches("medium train CLI", got, _expected(
+                medium_train // Bm, medium_test // Bm, mixed_m, LAUNCHES_PER_TRAIN_STEP,
+                LAUNCHES_PER_FORWARD))
+            _check_measures("medium validation", run["val"][0])
+            out["medium_train"] = dict(_train_summary("medium train", run, secs, peak, Bm, card,
+                                                      warmup=1),
+                                       launches=got, mixed_val_batches=mixed_m)
+            timing = {}
+            res, got, secs, peak = _drive_cli(
+                eval_cli.evaluate, medium,
+                argv_m + ["--eval_extra", "auc", "--reload", run["checkpoint"]["path"]], timing)
+            _check_launches("medium eval CLI", got, _expected(
+                0, medium_test // Bm, mixed_m, LAUNCHES_PER_TRAIN_STEP, LAUNCHES_PER_FORWARD))
+            _check_measures("medium eval", res)
+            log(f"  medium eval CLI [{card}]: {timing['samples']} samples, "
+                f"{timing['samples'] / timing['seconds']:.1f} samples/s (data drawn on the host "
+                f"included); peak {peak:.2f} GiB; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in res.items()))
+            out["medium_eval"] = dict(results=res, samples_per_s=timing["samples"]
+                                      / timing["seconds"], peak_gib=peak, launches=got)
+        finally:
+            os.chdir(cwd)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    results["front_doors"] = out
+    return out
 
 
 if __name__ == "__main__":

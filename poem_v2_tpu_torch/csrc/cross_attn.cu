@@ -23,8 +23,8 @@
 // an online softmax kept in float32 (each row's max and sum are shared by
 // the 16 threads that own the row), accumulates P V in registers and
 // divides by the row sum at the end. P stays float32 there. It takes head
-// dims from 32 to 256 in steps of 16; bfloat16 takes head dims 32, 64, 128
-// and 256 on 16-byte aligned tensors; the wrapper rejects anything else.
+// dims from 16 to 256 in steps of 16; bfloat16 takes head dims 16, 32, 64,
+// 128 and 256 on 16-byte aligned tensors; the wrapper rejects anything else.
 // Both forwards can write the row logsumexp (float32, (B, heads, M)), which
 // the backward takes beside the output.
 #include <cuda.h>
@@ -430,7 +430,9 @@ cudaError_t launch_dense_attn_bwd(const void* q, const void* k, const void* v, c
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the H100's warpgroup tensor cores: forward (K3) and the two
-// passes of the backward (K3b), head dims 32, 64, 128 and 256.
+// passes of the backward (K3b), head dims 16, 32, 64, 128 and 256. At head
+// dim 16 (the synthetic ResNet models' 4 heads of 64) Q K^T is one k-step and
+// P V an n16 product.
 //
 // What bounds them: arithmetic (see the head of the file), so the products
 // have to run as `wgmma`, the only instruction that reaches the card's
@@ -439,9 +441,10 @@ cudaError_t launch_dense_attn_bwd(const void* q, const void* k, const void* v, c
 // * Loads are asynchronous. The tiles a block streams go through a ring of
 //   NST stages in shared memory. One elected thread asks the TMA unit for a
 //   tile (a tensor map over (H, rows, B) with a box of at most 64 columns of
-//   one head, so a box row is 128 bytes, 64 at head dim 32, and the hardware
-//   applies the matching 128- or 64-byte swizzle that `wgmma` reads without
-//   bank conflicts). The bytes complete on the stage's `full` mbarrier; the
+//   one head, so a box row is 128 bytes, 64 at head dim 32 and 32 at head dim
+//   16, and the hardware applies the matching 128-, 64- or 32-byte swizzle
+//   that `wgmma` reads without bank conflicts; the descriptors name the same
+//   swizzle, `Box::LAYOUT`). The bytes complete on the stage's `full` mbarrier; the
 //   warps give the stage back on its `empty` mbarrier, and the elected
 //   thread refills it NST - 1 tiles ahead of the products. There is no
 //   `__syncthreads()` after the barriers are set up. Rows past the end of a
@@ -484,13 +487,18 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // One head's columns arrive in boxes of at most 64 columns: a box is
-// [rows][C] bfloat16 with rows RB bytes apart, swizzled over RB bytes.
+// [rows][C] bfloat16 with rows RB bytes apart, swizzled over RB bytes (the
+// descriptor's swizzle code: 1 for 128 bytes, 2 for 64, 3 for 32).
 template <int HD> struct Box {
   static constexpr int C = HD < 64 ? HD : 64;
   static constexpr int RB = C * 2;
   static constexpr int NB = HD / C;
   static constexpr int KSTEPS = C / 16;
-  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 256 && HD % C == 0, "head dim");
 };
 
 // descriptor of a K-major operand (the 16 reduced columns lie along a box row)
@@ -740,7 +748,8 @@ __global__ void __launch_bounds__(FwdCfg<HD>::THREADS, 1)
 }
 
 // tensor map over a contiguous (B, rows, H) bfloat16 tensor, dimensions (H,
-// rows, B), with a box of `box_rows` rows of one head's first 64 (or 32) columns
+// rows, B), with a box of `box_rows` rows of one head's first 64 (or 32, or 16)
+// columns
 template <int HD>
 static bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int box_rows) {
   EncodeTiledFn encode = encode_tiled_fn();
@@ -751,7 +760,7 @@ static bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, 
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Box<HD>::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                Box<HD>::SWIZZLE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
@@ -1058,15 +1067,17 @@ static bool aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-static bool wg_head_dim(int hd) { return hd == 32 || hd == 64 || hd == 128 || hd == 256; }
+static bool wg_head_dim(int hd) {
+  return hd == 16 || hd == 32 || hd == 64 || hd == 128 || hd == 256;
+}
 
-// The shapes each dtype takes: float32 head dims 32..256 in steps of 16;
-// bfloat16 head dims 32, 64, 128 or 256 on 16-byte aligned tensors.
+// The shapes each dtype takes: float32 head dims 16..256 in steps of 16;
+// bfloat16 head dims 16, 32, 64, 128 or 256 on 16-byte aligned tensors.
 static bool shapes_ok(int dtype, int M, int N, int H, int nh,
                       std::initializer_list<const void*> ptrs) {
   if (nh < 1 || H % nh != 0 || M < 1 || N < 1) return false;
   const int hd = H / nh;
-  if (dtype == DTYPE_F32) return hd >= 32 && hd <= CA_MAX_HD && hd % 16 == 0;
+  if (dtype == DTYPE_F32) return hd >= 16 && hd <= CA_MAX_HD && hd % 16 == 0;
   if (dtype == DTYPE_BF16) return wg_head_dim(hd) && aligned16(ptrs);
   return false;
 }
@@ -1085,8 +1096,9 @@ extern "C" int poem_dense_cross_attention(int dtype, const void* q, const void* 
     return (int)launch_dense_attn(q, k, v, out, lse, B, M, N, H, nh, scale, s);
   if (!(scale > 0.0f)) return (int)cudaErrorInvalidValue;  // the running max is of raw logits
 #define POEM_FWD_WG(HD) launch_dense_attn_wg<HD>(q, k, v, out, lse, B, M, N, H, nh, scale, s)
-  return (int)(hd == 32 ? POEM_FWD_WG(32) : hd == 64 ? POEM_FWD_WG(64)
-               : hd == 128 ? POEM_FWD_WG(128) : POEM_FWD_WG(256));
+  return (int)(hd == 16 ? POEM_FWD_WG(16) : hd == 32 ? POEM_FWD_WG(32)
+               : hd == 64 ? POEM_FWD_WG(64) : hd == 128 ? POEM_FWD_WG(128)
+                                             : POEM_FWD_WG(256));
 #undef POEM_FWD_WG
 }
 
@@ -1109,7 +1121,8 @@ extern "C" int poem_dense_cross_attention_bwd(int dtype, const void* q, const vo
                                       scale, s);
 #define POEM_BWD_WG(HD)                                                                        \
   launch_dense_attn_bwd_wg<HD>(q, k, v, out, dout, lse, dq, dk, dv, stats, B, M, N, H, nh, scale, s)
-  return (int)(hd == 32 ? POEM_BWD_WG(32) : hd == 64 ? POEM_BWD_WG(64)
-               : hd == 128 ? POEM_BWD_WG(128) : POEM_BWD_WG(256));
+  return (int)(hd == 16 ? POEM_BWD_WG(16) : hd == 32 ? POEM_BWD_WG(32)
+               : hd == 64 ? POEM_BWD_WG(64) : hd == 128 ? POEM_BWD_WG(128)
+                                             : POEM_BWD_WG(256));
 #undef POEM_BWD_WG
 }

@@ -100,7 +100,8 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 // ---- wgmma ----
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (all in 16-byte units) and the swizzle mode (1: 128 bytes, 2: 64).
+// offsets (all in 16-byte units) and the swizzle mode (1: 128 bytes, 2: 64,
+// 3: 32).
 __device__ __forceinline__ uint64_t mma_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes,
                                              uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
@@ -212,6 +213,23 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t desc_a, uin
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 16, float32) = or += A (64 x 16, registers) B (16 x 16, shared, MN-major:
+// each of the 16 rows holds the 16 columns contiguously)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // d (64 x 32, float32) = or += A (64 x 16, registers) B (16 x 32, shared, MN-major:

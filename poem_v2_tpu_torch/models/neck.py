@@ -1,7 +1,4 @@
-"""Feature necks for HRNet (counterpart of ``poem_v2_tpu/models/neck.py``), NCHW.
-
-``ResNetFeatNeck`` is not ported yet.
-"""
+"""Feature necks for HRNet and ResNet (counterpart of ``poem_v2_tpu/models/neck.py``), NCHW."""
 
 from __future__ import annotations
 
@@ -66,6 +63,27 @@ def maxpool2x(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2)
 
 
+class ResNetFeatNeck(nn.Module):
+    """Upsample-and-concat over the pyramid from res_layer4 down, a max-pool and
+    a 1x1 projection to feat_size[2] (``feat_size`` is res_layer4's channels first)."""
+
+    def __init__(self, feat_size: Tuple[int, int, int, int], norm: str = "gn"):
+        super().__init__()
+        cin = feat_size[0]
+        for i in range(3):
+            self.add_module(f"ConvBlock_{i}",
+                            ConvBlock(cin + feat_size[i + 1], feat_size[i + 1], 3, norm=norm))
+            cin = feat_size[i + 1]
+        self.feat_in = ConvBlock(cin, feat_size[2], 1, norm="none", relu=False)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        rev = list(reversed(feats))
+        x = rev[0]
+        for i in range(3):
+            x = getattr(self, f"ConvBlock_{i}")(torch.cat([upsample2x(x), rev[i + 1]], dim=1))
+        return self.feat_in(maxpool2x(x))
+
+
 class HRNetFeatNeck(nn.Module):
     """Strided-conv descent over the pyramid, a 2x upsample, a 1x1 projection to feat_size[2]."""
 
@@ -84,22 +102,23 @@ class HRNetFeatNeck(nn.Module):
 
 
 class UVDecodeNeck(nn.Module):
-    """Heatmap branch: upsample-and-concat decoder, max-pool, 1x1 -> 21 sigmoid maps."""
+    """Heatmap branch: upsample-and-concat decoder, max-pool, 1x1 -> 21 sigmoid maps.
+
+    ``feat_size`` lists HRNet's branches from the finest (``hrnet=True``) and
+    ResNet's from res_layer4; either way the decoder starts at the coarsest."""
 
     def __init__(self, feat_size: Tuple[int, int, int, int], num_joints: int = 21,
                  hrnet: bool = True, norm: str = "gn"):
         super().__init__()
-        if not hrnet:
-            raise NotImplementedError("the ResNet variant of UVDecodeNeck is not ported yet")
         fs = feat_size
-        out_channels = [fs[2], fs[1], fs[0]]
-        cin = fs[3]
+        rev_ch = list(reversed(fs)) if hrnet else list(fs)  # coarsest first
+        cin = rev_ch[0]
         for i in range(3):
             self.add_module(f"ConvBlock_{i}",
-                            ConvBlock(cin + fs[2 - i], out_channels[i], 3, norm=norm))
-            cin = out_channels[i]
-        self.uv_out = ConvBlock(fs[0], num_joints, 1, norm="none", relu=False)
-        self.uv_in = ConvBlock(num_joints, fs[1], 1, norm=norm)
+                            ConvBlock(cin + rev_ch[i + 1], rev_ch[i + 1], 3, norm=norm))
+            cin = rev_ch[i + 1]
+        self.uv_out = ConvBlock(cin, num_joints, 1, norm="none", relu=False)
+        self.uv_in = ConvBlock(num_joints, fs[1] if hrnet else fs[2], 1, norm=norm)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Pyramid -> (N, 21, 32, 32) sigmoid heatmaps."""

@@ -1,7 +1,8 @@
 """POEMNet and create_poem_model (counterpart of ``poem_v2_tpu/models/poem.py``).
 
 images (B, V, H, W, 3) with a (B, V) view mask
-  -> HRNet per view -> feature neck (B*V, 16, 16, C) + heatmap neck
+  -> HRNet or ResNet-18 / 34 / 50 per view -> feature neck (B*V, h, w, C)
+     + heatmap neck
   -> integral 2D joints -> reference joints: eval = masked DLT of the 2D
      joints; train (``module.train()``) = ground truth jittered by draws
      the caller passes (:func:`draw_ref_noise`)
@@ -27,8 +28,9 @@ from ..geometry.triangulation import triangulate_dlt
 from ..mano.layer import ManoLayer
 from ..ops.points import farthest_point_sampling
 from .backbones.hrnet import HRNet
+from .backbones.resnet import ResNet
 from .heads.ptemb_head import POEMGeneralizedHead, generate_bps_basis
-from .neck import HRNetFeatNeck, UVDecodeNeck
+from .neck import HRNetFeatNeck, ResNetFeatNeck, UVDecodeNeck
 
 _ASSETS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "assets")
@@ -90,7 +92,9 @@ class POEMNet(nn.Module):
         B, V, H, W, _ = images.shape
         dt = self.head.input_proj.weight.dtype
         imgs = images.reshape(B * V, H, W, 3).to(dt).permute(0, 3, 1, 2)
-        pyramid = self.backbone(imgs)
+        feats = self.backbone(imgs)
+        pyramid = ([feats[f"res_layer{i}"] for i in range(1, 5)] if isinstance(feats, dict)
+                   else feats)
         mlvl = self.feat_neck(pyramid).permute(0, 2, 3, 1)      # (BV, h, w, C)
         uv_hmap = self.uv_neck(pyramid)                          # (BV, 21, 32, 32)
 
@@ -181,7 +185,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if p.dim() == 1:
-                val = torch.ones(p.shape) if leaf == "weight" else torch.zeros(p.shape)
+                ones = leaf in ("weight", "running_var")  # scales; FrozenBatchNorm's variance
+                val = torch.ones(p.shape) if ones else torch.zeros(p.shape)
             elif leaf == "query_feat_embedding" or any(b in name for b in bert):
                 val = torch.randn(p.shape, generator=generator) * 0.02
             else:
@@ -202,7 +207,8 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                       generator: Optional[torch.Generator] = None,
                       param_dtype: Optional[torch.dtype] = None
                       ) -> Tuple[POEMNet, Dict[str, Any]]:
-    """Build the HRNet POEMNet from the ``MODEL`` section of a release config.
+    """Build the POEMNet (``BACKBONE.TYPE`` HRNet or resnet18 / 34 / 50) from the
+    ``MODEL`` section of a config.
 
     Weights come from ``generator`` (seed 0 if None); load a converted
     ``state_dict`` over them for real weights. ``dtype`` is the compute
@@ -219,8 +225,9 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                            'pass device="cpu" to build the model there')
     bb_cfg, head_cfg = cfg["BACKBONE"], cfg["HEAD"]
     tr_cfg = head_cfg["TRANSFORMER"]
-    if bb_cfg["TYPE"] != "HRNet":
-        raise NotImplementedError(f"backbone {bb_cfg['TYPE']!r} is not ported yet (HRNet only)")
+    bb_type = bb_cfg["TYPE"]
+    if not (bb_type == "HRNet" or bb_type.lower().startswith("resnet")):
+        raise ValueError(f"Unsupported backbone {bb_type!r} for POEM")
     if tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3":
         raise NotImplementedError("the PtEmbedTRv3 decoder is not ported yet")
     if head_cfg.get("PETR_EMBEDDING", False):
@@ -242,15 +249,22 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
         pt_anchor_idx, q_anchor_idx = pt_anchor_idx[0].numpy(), q_anchor_idx[0].numpy()
 
     with torch.device("meta"):
-        backbone = HRNet.from_config(bb_cfg)
-        feat_size = backbone.stage4_channels
+        if bb_type == "HRNet":
+            backbone = HRNet.from_config(bb_cfg)
+            feat_size = backbone.stage4_channels
+            feat_neck = HRNetFeatNeck(feat_size, norm=norm)
+        else:
+            backbone = ResNet(arch=bb_type.lower(), norm=norm)
+            feat_size = backbone.feat_size
+            feat_neck = ResNetFeatNeck(feat_size, norm=norm)
         model = POEMNet(
-            backbone,
-            HRNetFeatNeck(feat_size, norm=norm),
-            UVDecodeNeck(feat_size, hrnet=True, norm=norm),
+            backbone, feat_neck,
+            UVDecodeNeck(feat_size, hrnet=bb_type == "HRNet", norm=norm),
             POEMGeneralizedHead(
                 embed_dims=head_cfg["EMBED_DIMS"], pt_feat_dim=head_cfg["POINTS_FEAT_DIM"],
-                in_channels=head_cfg["IN_CHANNELS"], num_query=head_cfg["NUM_QUERY"],
+                # the feature neck's width, which the flax head takes from its input
+                # (the shipped configs set ``IN_CHANNELS`` to the same number)
+                in_channels=feat_size[2], num_query=head_cfg["NUM_QUERY"],
                 nsample=nsample, radius=radius,
                 pe_num_feats=head_cfg["POSITIONAL_ENCODING"]["NUM_FEATS"], center_idx=center,
                 bps_basis=bps, template_mesh=template, query_anchor_idx=q_anchor_idx,

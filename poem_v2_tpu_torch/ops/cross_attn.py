@@ -22,10 +22,11 @@ the same bits on every launch.
 
 Widths: the kernels take q (B, M, H), k and v (B, N, H) on one CUDA device
 with H divisible by ``num_heads``, any M and N. In bfloat16 the head dim
-H / num_heads must be 32, 64, 128 or 256, the four released tiers' at 4
-heads, every tensor 16-byte aligned and ``sm_scale`` positive (the kernel
-keeps the running maximum of the raw logits, as the TPU kernel folds the scale
-into the exponent); in float32 any head dim from 32 to 256 in steps of 16.
+H / num_heads must be 16, 32, 64, 128 or 256 (the four released tiers' at 4
+heads, and the synthetic ResNet models' 16), every tensor 16-byte aligned and
+``sm_scale`` positive (the kernel keeps the running maximum of the raw
+logits, as the TPU kernel folds the scale into the exponent); in float32 any
+head dim from 16 to 256 in steps of 16.
 The wrappers raise ``ValueError`` for anything else and
 ``TypeError`` for another dtype; the raw forward raises ``RuntimeError``
 under autograd (use :func:`dense_cross_attention`, whose backward is K3b).
@@ -78,12 +79,13 @@ def _check_cuda(q, k, v, num_heads, sm_scale):
         raise ValueError(f"H={H} not divisible by num_heads={num_heads}")
     hd = H // num_heads
     if q.dtype == torch.bfloat16:
-        if hd not in (32, 64, 128, 256):
-            raise ValueError(f"the bfloat16 kernels take head dims 32, 64, 128 or 256, got {hd}")
+        if hd not in (16, 32, 64, 128, 256):
+            raise ValueError(f"the bfloat16 kernels take head dims 16, 32, 64, 128 or 256, "
+                             f"got {hd}")
         if not sm_scale > 0:
             raise ValueError(f"the bfloat16 kernels take a positive sm_scale, got {sm_scale}")
-    elif not (32 <= hd <= 256 and hd % 16 == 0):
-        raise ValueError(f"the float32 kernels take head dims 32..256 in steps of 16, got {hd}")
+    elif not (16 <= hd <= 256 and hd % 16 == 0):
+        raise ValueError(f"the float32 kernels take head dims 16..256 in steps of 16, got {hd}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
 

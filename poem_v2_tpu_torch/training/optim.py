@@ -142,6 +142,23 @@ class Optimizer:
             torch._foreach_add_(self.params, update, alpha=-lr)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """The moments, the accumulator and the counters (tensors on their device)."""
+        return {"count": self.count, "mini_step": self.mini_step, "mu": list(self.mu),
+                "nu": list(self.nu), "acc": list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping) -> None:
+        """Copy a :meth:`state_dict` of an optimiser over the same parameters into this one."""
+        for key in ("mu", "nu", "acc"):
+            mine = getattr(self, key)
+            if len(state[key]) != len(mine):
+                raise ValueError(f"optimiser state {key!r} has {len(state[key])} tensors, "
+                                 f"this optimiser {len(mine)}")
+            for t, v in zip(mine, state[key]):
+                t.copy_(v)
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None

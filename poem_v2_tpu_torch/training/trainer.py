@@ -54,6 +54,7 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, aux: Mapping[str, Any], train_cfg: Mapping,
                  loss_cfg: Mapping, steps_per_epoch: int = 1000, seed: Optional[int] = None):
         self.model = model
+        self.global_step = 0  # steps taken, as the JAX TrainState.step
         self.device = next(model.parameters()).device
         self.optimizer = Optimizer(model.parameters(), train_cfg, steps_per_epoch)
         seed = seed if seed is not None else train_cfg.get("MANUAL_SEED", 1)
@@ -80,4 +81,18 @@ class Trainer:
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(dropout_seed)
-            return self._train_step(dev_batch, draws)
+            metrics = self._train_step(dev_batch, draws)
+        self.global_step += 1
+        return metrics
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint must hold to resume: the parameters (and buffers), the
+        optimiser's state, the step and the generator of the jitter and dropout draws."""
+        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+                "step": self.global_step, "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.global_step = int(state["step"])
+        self.generator.set_state(state["generator"])

@@ -23,10 +23,23 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
 
 
+SYNTHETIC_TINY = dict(B=2, M=19, D=32, K=4, N=32, V=2, HW=4, N_big=68, A=8)
+
+
 def test_phase_kernels_rehearsal(on_cpu):
     results = {}
-    chip_smoke.phase_kernels(results, B=2, M=19, D=32, K=8, N=64, V=4, wide=(48,))
-    names = {case.split("/")[0] for case in results} - {"wide", "ragged"}
+    chip_smoke.phase_kernels(results, B=2, M=19, D=32, K=8, N=64, V=4, wide=(48,),
+                             synthetic=SYNTHETIC_TINY)
+    # the synthetic ResNet-18 model's shapes: K1 self and cross, K2, K3 at its head
+    # dim over two key counts, K4 on its 2 views' maps, K5 on a batch of 1 and 2 views
+    assert {c for c in results if c.startswith("synthetic/")} == {
+        "synthetic/fused_knn_vector_attention/self_D32_K4",
+        "synthetic/fused_knn_vector_attention/cross_D32_K4",
+        "synthetic/fused_anchor_vector_attention/D32", "synthetic/dense_cross_attention/hd8_N32",
+        "synthetic/dense_cross_attention/hd8_N68",
+        "synthetic/grid_sample_points_fused/V2_4x4_D32",
+        "synthetic/scrambled_merge_gather/V2_D32"}
+    names = {case.split("/")[0] for case in results} - {"wide", "ragged", "synthetic"}
     assert names == {k for k, n in chip_smoke.LAUNCHES_PER_MIXED_FORWARD.items() if n} | {
         "fused_vector_attention"}
     assert set(chip_smoke.LAUNCHES_PER_FORWARD) == set(chip_smoke.LAUNCHES_PER_TRAIN_STEP) \
@@ -34,11 +47,14 @@ def test_phase_kernels_rehearsal(on_cpu):
     # K3 also at one sample with a key count no tile divides, its lse held everywhere
     dense = [c for c in results if "dense_cross_attention" in c]
     assert sorted(dense) == ["dense_cross_attention", "ragged/dense_cross_attention/B1_N68",
+                             "synthetic/dense_cross_attention/hd8_N32",
+                             "synthetic/dense_cross_attention/hd8_N68",
                              "wide/dense_cross_attention/D48"]
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for row in by_dtype.values():
-            k1 = case.split("/")[int(case.startswith("wide/"))] == "fused_knn_vector_attention"
+            k1 = case.split("/")[int(case.startswith(("wide/", "synthetic/")))] \
+                == "fused_knn_vector_attention"
             assert set(row) == {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by"} | ({"lse_max_abs_err"} if case in dense else set()) \
                 | ({"bound_five_ms"} if k1 else set())
@@ -52,7 +68,11 @@ def test_phase_kernels_rehearsal(on_cpu):
     # K4 at every width and at four times the batch (medium's B16)
     assert {c for c in results if "grid_sample" in c} == {
         "grid_sample_points_fused", "wide/grid_sample_points_fused/D48",
-        "wide/grid_sample_points_fused/B8_D32"}
+        "wide/grid_sample_points_fused/B8_D32", "synthetic/grid_sample_points_fused/V2_4x4_D32"}
+    for case in ("synthetic/dense_cross_attention/hd8_N32",
+                 "synthetic/grid_sample_points_fused/V2_4x4_D32",
+                 "synthetic/scrambled_merge_gather/V2_D32"):
+        assert results[case]["bfloat16"]["library_ms"] is not None, case
     json.dumps(results)  # what goes into the kernels line is serialisable
 
 
@@ -125,13 +145,17 @@ def test_phase_train_kernels_rehearsal(on_cpu):
     against the plain version on the same device; K3b from the saved output
     and logsumexp, with and without them, also at one sample and 68 keys."""
     results = {}
-    chip_smoke.phase_train_kernels(results, B=2, M=19, D=32, K=8, N=64, wide=(48,))
+    chip_smoke.phase_train_kernels(results, B=2, M=19, D=32, K=8, N=64, wide=(48,),
+                                   synthetic=(16, 4, 32))
     cases = ["dense_cross_attention_bwd", "knn_vector_attention_trainable/self",
              "knn_vector_attention_trainable/cross", "knn_vector_attention_trainable_bwd/self",
              "knn_vector_attention_trainable_bwd/cross", "scatter_add_rows/self",
              "scatter_add_rows/cross"]
     ragged = "ragged/dense_cross_attention_bwd/B1_N68"  # one sample, keys no tile divides
-    assert set(results) == set(cases) | {f"wide/{c}/D48" for c in cases} | {ragged}
+    # the synthetic model's width (here 16: head dim 4), K3b also over the main N keys
+    synthetic = {f"synthetic/{c}/D16" for c in cases} | {
+        "synthetic/dense_cross_attention_bwd/D16_N64"}
+    assert set(results) == set(cases) | {f"wide/{c}/D48" for c in cases} | {ragged} | synthetic
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for dt, row in by_dtype.items():
@@ -146,7 +170,7 @@ def test_phase_train_kernels_rehearsal(on_cpu):
                 assert row["max_abs_err"] == 0.0  # the same plain version on both sides
                 assert row.get("lse_max_abs_err", 0.0) == 0.0
     # the kernels line takes the main width only
-    assert {c.split("/")[0] for c in results} - {"wide", "ragged"} == {
+    assert {c.split("/")[0] for c in results} - {"wide", "ragged", "synthetic"} == {
         "dense_cross_attention_bwd", "knn_vector_attention_trainable",
         "knn_vector_attention_trainable_bwd", "scatter_add_rows"}
     json.dumps(results)
@@ -222,3 +246,53 @@ def test_mixed_view_mask_mixes_counts():
         n = mask.sum(1)
         assert mask.shape == (4, 8) and n.min() >= 2 and n.max() == 8 and (n != 8).any()
         assert (mask == (np.arange(8)[None] < n[:, None])).all()  # valid views come first
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the CLI runs: the tier runs several test files at
+    once on the host's cores, and more threads a process only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_phase_front_doors_rehearsal(on_cpu, one_thread, monkeypatch):
+    """Phase 5 on the CPU at small sizes: the train CLI's epoch with validation
+    and a checkpoint, the resumed run's next loss, the eval CLI with AUC, and the
+    medium paths (a tiny HRNet model here); the launch counts each path must
+    show on the card are those of the synthetic model and of the tiers."""
+    from torch_port_helpers import tiny_cfg
+
+    checked = {}
+    monkeypatch.setattr(chip_smoke, "_check_launches",
+                        lambda name, got, want: checked.__setitem__(name, (got, want)))
+    results = {}
+    out = chip_smoke.phase_front_doors(results, device="cpu", dtype="fp32", smoke_epoch=8,
+                                       medium_model=tiny_cfg().to_dict(), medium_image=64,
+                                       medium_views=2, medium_batch=2, medium_train=4,
+                                       medium_test=2)
+    assert set(checked) == {"synthetic train CLI", "synthetic eval CLI", "medium train CLI",
+                            "medium eval CLI"}
+    assert all(got == {k: 0 for k in chip_smoke.KERNELS} for got, _ in checked.values())
+    mixed = out["synthetic_train"]["mixed_val_batches"]
+    assert 0 < mixed < 4  # the test set mixes 1 and 2 views in some batches
+    # 2 steps and 4 validation batches of the synthetic model
+    want = checked["synthetic train CLI"][1]
+    assert want == {**{k: 0 for k in chip_smoke.KERNELS}, "dense_cross_attention": 2 * 4 + 4 * 4,
+                    "dense_cross_attention_bwd": 2 * 4, "fused_knn_vector_attention": 2 * 2 + 4 * 2,
+                    "knn_vector_attention_trainable": 2 * 2,
+                    "knn_vector_attention_trainable_bwd": 2 * 2, "scatter_add_rows": 2 * 2,
+                    "fused_anchor_vector_attention": 4 * 2, "grid_sample_points_fused": 4,
+                    "scrambled_merge_gather": mixed}
+    want = checked["synthetic eval CLI"][1]
+    assert want["dense_cross_attention"] == 16 and want["dense_cross_attention_bwd"] == 0
+    want = checked["medium train CLI"][1]
+    assert want["dense_cross_attention_bwd"] == 2 * 6 and want["dense_cross_attention"] == 3 * 6
+    assert out["resume"]["next_loss"] == out["resume"]["uninterrupted"]
+    assert out["synthetic_train"]["steps"] == 2 and out["medium_train"]["steps"] == 2
+    assert out["synthetic_train"]["ckpt_bytes"] > 0
+    assert 0.0 <= out["synthetic_eval"]["results"]["auc_j"] <= 1.0
+    assert results["front_doors"] is out
+    json.dumps({k: {kk: vv for kk, vv in v.items()} for k, v in out.items()})

@@ -127,7 +127,7 @@ RAGGED = [(2, 133, 517), (1, 1, 64), (1, 63, 100), (2, 65, 4100), (1, 799, 4100)
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,M,N", RAGGED)
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_dense_cross_attention_head_dims(cuda, dtype, hd, B, M, N):
     """K3's output and row logsumexp (1e-5 absolute) against the plain versions."""
     rs = np.random.RandomState(hd)
@@ -254,7 +254,7 @@ def _grads_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,M,N", RAGGED)
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_dense_cross_attention_backward_head_dims(cuda, dtype, hd, B, M, N):
     """K3b against autograd through the plain version at shapes no tile divides:
     from the forward's saved (out, lse), a second launch and a call without
@@ -275,6 +275,38 @@ def test_dense_cross_attention_backward_head_dims(cuda, dtype, hd, B, M, N):
     _grads_close(got, want, dtype)
     for a, b, c in zip(got, again, alone):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_dense_cross_attention_head_dim_16_keeps_columns_in_place(cuda):
+    """bf16 head dim 16 (the synthetic ResNet models' 4 heads of 16; 32-byte
+    swizzled tiles): with q, k scaled column by column and each value column
+    near its own index, a column that the tensor maps and the descriptors read
+    swizzled differently would show as a wrong column's value; K3 and K3b
+    against their plain versions, lse to 1e-5, one launch each, K3b twice alike."""
+    rs = np.random.RandomState(16)
+    nh, hd, scale = 4, 16, 0.25
+    cols = torch.linspace(0.25, 2.0, nh * hd)
+    q, k = ((_mk(rs, 4, n, nh * hd) * cols).bfloat16() for n in (799, 256))
+    v = (torch.arange(nh * hd).float() + 0.01 * _mk(rs, 4, 256, nh * hd)).bfloat16()
+    do = _mk(rs, 4, 799, nh * hd).bfloat16()
+    dev = [t.to(cuda) for t in (q, k, v, do)]
+    before = (cross_attn.dense_cross_attention.launches,
+              cross_attn.dense_cross_attention_bwd.launches)
+    out, lse = cross_attn.dense_cross_attention_forward(*dev[:3], nh, scale, return_lse=True)
+    grads = cross_attn.dense_cross_attention_bwd(*dev, nh, scale, out=out, lse=lse)
+    again = cross_attn.dense_cross_attention_bwd(*dev, nh, scale, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert (cross_attn.dense_cross_attention.launches,
+            cross_attn.dense_cross_attention_bwd.launches) == (before[0] + 1, before[1] + 2)
+    # every output column is a convex mix of its own value column: within 0.5 of its
+    # index (bfloat16 rounds 63 by up to 0.125; a neighbouring column is 1 away)
+    assert float((out.float().cpu() - torch.arange(nh * hd).float()).abs().max()) < 0.5
+    _close(out, cross_attn.plain_dense_cross_attention(q, k, v, nh, scale), torch.bfloat16)
+    want_lse = cross_attn.plain_dense_cross_attention_lse(q, k, nh, scale)
+    assert float((lse.cpu() - want_lse).abs().max()) <= 1e-5
+    _grads_close(grads, cross_attn.plain_dense_cross_attention_bwd(q, k, v, do, nh, scale),
+                 torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 def test_dense_cross_attention_function_grads(cuda):

@@ -93,6 +93,8 @@ def test_create_poem_model_targets_the_card():
 @pytest.mark.parametrize("cfg_change", [{"TYPE": "PtEmbedTRv3"}, {"PETR": True},
                                         {"BACKBONE": "resnet18"}])
 def test_unported_variants_still_raise(cfg_change):
+    """PtEmbedTRv3 and the PETR embedding raise; the ResNet backbones, ported
+    since, build (tests/test_torch_resnet.py holds them against JAX)."""
     cfg = tiny_cfg()
     if "TYPE" in cfg_change:
         cfg.HEAD.TRANSFORMER.TYPE = cfg_change["TYPE"]
@@ -100,6 +102,9 @@ def test_unported_variants_still_raise(cfg_change):
         cfg.HEAD.PETR_EMBEDDING = True
     else:
         cfg.BACKBONE.TYPE = cfg_change["BACKBONE"]
+        model, _ = torch_create(cfg, device="cpu")
+        assert type(model.backbone).__name__ == "ResNet" and model.backbone.arch == "resnet18"
+        return
     with pytest.raises(NotImplementedError):
         torch_create(cfg, device="cpu")
 

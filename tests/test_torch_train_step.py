@@ -7,9 +7,9 @@ and 1 of 3 views, with DROPOUT 0 on both sides. The backbone norm is
 (``use_fast_variance``), and at these widths its float32 backward is off
 the float64 one by up to 1e-2 of the largest gradient (measured on the
 HRNet alone; torch's GroupNorm stays within 2e-6 at width 40), which would
-swamp a 1e-4 comparison of the rest. The JAX FrozenBatchNorm keeps its
-statistics as parameters, which take gradients; the port keeps them as
-buffers, so the comparisons run over the port's parameters. The JAX side runs the TPU
+swamp a 1e-4 comparison of the rest. Both FrozenBatchNorms keep their
+statistics as parameters, which take gradients and Adam updates, and the
+comparisons run over all of the port's parameters, those included. The JAX side runs the TPU
 training path (``use_flash=True``: K3 + its Pallas backward, K6, K7) with
 its Pallas kernels in interpret mode and ``remat=False`` (remat does not
 change gradients, tests/test_model.py); the port runs its plain versions
