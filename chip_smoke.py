@@ -109,6 +109,22 @@ non-zero:
    counted around it and must equal its steps' and forwards' counts; losses
    finite, measures finite metres; ms/step (CUDA events), samples/s, peak
    GiB, checkpoint bytes and write / read seconds, eval samples/s.
+6. this slice's paths at medium's full width, B8 (1-8 of 8 views): (a) the
+   Trainer under ``torch.distributed``: world size 1 over NCCL against the
+   single-process step, bit for bit in float32 (deterministic cuDNN and
+   algorithms), the same launches, then both timed in turns in bfloat16 (ms /
+   step, samples/s, peak GiB) and profiled once (device busy, idle share); two gloo ranks on the card (``--ddp-worker``
+   processes of this script), B4 each, against the single-process B8 step in
+   float32 at dropout 0: loss terms to 1e-5 relative, gradients per module to
+   1e-4 of the module's largest (the backbone to phase 4b's 3e-2); (b) the
+   ``--no-flash_train`` step: K3 / K3b / K6 / K6b launch 0 times and K7 4 times,
+   at dropout 0 in float32, its gathered path fed K1's neighbours (K6 breaks
+   near-ties by K1's packed keys), it is held to the flash step with (a)'s
+   bounds, and read as shipped beside it; its bfloat16 step is timed beside the
+   flash one; (c) medium's random weights
+   (``NORM: frozen_bn``) under the released checkpoints' names through
+   ``scripts/torch_convert_checkpoint.py`` into ``Predictor.from_config(ckpt_path=)``:
+   the B4 mixed-view forward bit-identical to the source model's, K1-K5 launched.
 
 The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
@@ -1458,6 +1474,9 @@ def main() -> int:
     phase_train_tiers(results)
     phase_train_parity(results, "medium_MANO")
     front = phase_front_doors(results)
+    ddp_launches = phase_ddp(results)
+    no_flash_launches = phase_no_flash(results)
+    phase_reference_checkpoint(results)
     path_launches = {
         **{k: launches[k] for k, n in LAUNCHES_PER_FORWARD.items() if n},
         "scrambled_merge_gather": tier_launches["scrambled_merge_gather"],
@@ -1525,6 +1544,9 @@ def main() -> int:
     for e in entries:
         e["front_door_launches"] = {path: front[path]["launches"][e["name"]] for path in (
             "synthetic_train", "synthetic_eval", "medium_train", "medium_eval")}
+        # one step of phase 6a's DDP (world 1, NCCL) and of 6b's --no-flash_train path
+        e["ddp_launches"] = ddp_launches[e["name"]]
+        e["no_flash_launches"] = no_flash_launches[e["name"]]
     # every kernel the synthetic paths run launched there
     quiet = [k for k, n in LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items()
              if n and not front["synthetic_train"]["launches"][k]]
@@ -1989,7 +2011,9 @@ def profile_train_step(trainer, batch, step_ms):
         wall_ms = (time.perf_counter() - t) * 1e3
     dev = {}  # device-side events only (kernels, copies, sets), ms by name
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation's device range (DDP's forward is one) spans kernels
+        # counted on their own
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
             dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     total = sum(dev.values())
     if total <= 0:
@@ -2459,5 +2483,460 @@ def phase_front_doors(results, device="cuda", dtype="bf16", smoke_epoch=64, medi
     return out
 
 
+# phase 6: the data-parallel step against the single-process one (loss terms
+# relative, gradients per module relative to the module's largest). Float32 on
+# one card, summed in other orders (B4 + B4 against B8); the float32 HRNet-W40
+# backward at random weights keeps phase 4b's bound (ROADMAP queue 3)
+DDP_LOSS_RTOL = 1e-5
+DDP_GRAD_BOUND = {"backbone": 3e-2, "other": 1e-4}
+# launches per train step of every tier with --no-flash_train: the einsum attention
+# and the gathered KNN neighbourhoods run no kernel forward; the backward of each
+# gathered bfloat16 block (self and cross attention of blocks 1 and 2) is K7
+LAUNCHES_PER_NO_FLASH_STEP = _launch_counts(scatter_add_rows=4)
+# the kernels the flash train step runs, each of which must launch on the DDP path
+TRAIN_PATH_KERNELS = [k for k, n in LAUNCHES_PER_TRAIN_STEP.items() if n]
+
+
+def _train_model(model_cfg, device, dtype, dropout=None, use_flash_train=True, state=None):
+    """A POEMNet of ``model_cfg`` with float32 parameters computing in ``dtype``,
+    weights from seed 0 or ``state``, ``dropout`` overriding the config's."""
+    import copy
+
+    from poem_v2_tpu_torch.models.poem import create_poem_model
+
+    cfg = copy.deepcopy(model_cfg)
+    if dropout is not None:
+        cfg["HEAD"]["TRANSFORMER"]["DROPOUT"] = dropout
+    model, aux = create_poem_model(cfg, dtype=dtype, param_dtype=torch.float32, device=device,
+                                   generator=torch.Generator().manual_seed(0),
+                                   use_flash_train=use_flash_train)
+    if state is not None:
+        model.load_state_dict(state)
+    return model, aux
+
+
+def _record_step(trainer, raw):
+    """One ``Trainer.step`` on the global host batch ``raw``: the metrics, the
+    gradients as the step left them before clipping (DDP's average under data
+    parallel), the parameters after the update (both on the CPU) and the launches,
+    counted from 0 around the step."""
+    grads = {}
+    step = trainer.optimizer.step
+
+    def keep():
+        grads.update({k: p.grad.detach().cpu().clone() for k, p in
+                      trainer.model.named_parameters() if p.grad is not None})
+        step()
+
+    trainer.optimizer.step = keep
+    reset_launches()
+    try:
+        metrics = {k: float(v) for k, v in trainer.step(raw).items()}
+    finally:
+        trainer.optimizer.step = step
+    launches = read_launches()
+    return dict(metrics=metrics, grads=grads, launches=launches,
+                params={k: p.detach().cpu().clone() for k, p in trainer.model.named_parameters()})
+
+
+def _same_bits(name, got, want):
+    """Raise unless two recorded steps are identical bit for bit."""
+    bad = [k for k in want["metrics"] if got["metrics"][k] != want["metrics"][k]]
+    bad += [f"grad {k}" for k in want["grads"]
+            if k not in got["grads"] or not torch.equal(got["grads"][k], want["grads"][k])]
+    bad += [f"param {k}" for k in want["params"] if not torch.equal(got["params"][k],
+                                                                     want["params"][k])]
+    log(f"  {name}: {len(want['metrics'])} metrics, {len(want['grads'])} gradients and "
+        f"{len(want['params'])} parameters compared bit for bit, {len(bad)} differ")
+    if bad or set(got["grads"]) != set(want["grads"]):
+        raise AssertionError(f"{name}: not bit-identical: {bad[:10]}")
+
+
+def _hold_step(name, got, want, card):
+    """Raise unless ``got``'s loss terms are within DDP_LOSS_RTOL of ``want``'s and its
+    gradients per module within DDP_GRAD_BOUND of the module's largest; every
+    reading is logged beside its bound."""
+    loss = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+            for k, v in want["metrics"].items()}
+    groups = {}
+    for k, w in want["grads"].items():
+        g = got["grads"].get(k, torch.zeros_like(w))
+        err, scale = groups.get(_module_group(k), (0.0, 0.0))
+        groups[_module_group(k)] = (max(err, float((g - w).abs().max())),
+                                    max(scale, float(w.abs().max())))
+    rel = {k: (e / s if s > 0 else (0.0 if e == 0 else math.inf)) for k, (e, s) in groups.items()}
+    bound = lambda k: DDP_GRAD_BOUND.get(k, DDP_GRAD_BOUND["other"])
+    log(f"  {name} [{card}]: loss terms |got - want| / |want| (bound {DDP_LOSS_RTOL:.0e}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in loss.items()))
+    log(f"  {name}: gradients max |dgrad| / max |grad| per module (bound): "
+        + ", ".join(f"{k} {v:.2e} ({bound(k):.0e})" for k, v in rel.items()))
+    bad = {k: v for k, v in loss.items() if not v <= DDP_LOSS_RTOL}
+    bad.update({k: v for k, v in rel.items() if not v <= bound(k)})
+    if bad or set(got["grads"]) - set(want["grads"]):
+        raise AssertionError(f"{name}: over the bounds: {bad}")
+    return dict(loss_rel=loss, grad_rel=rel)
+
+
+def _step_ms(trainer, raw, n):
+    """Milliseconds of ``n`` train steps, each between CUDA events (host clock on the CPU)."""
+    out = []
+    for _ in range(n):
+        if trainer.device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            trainer.step(raw)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            trainer.step(raw)
+            out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _time_in_turns(trainers, raw, batch, card, warmup=2, timed=3, rounds=2):
+    """Steps of each named Trainer in turns (``rounds`` x ``timed`` each, after
+    ``warmup``): the median ms / step, samples/s and peak GiB of each, logged."""
+    on_card = next(iter(trainers.values())).device.type == "cuda"
+    times = {name: [] for name in trainers}
+    peaks = dict.fromkeys(trainers, 0.0)
+    for name, tr in trainers.items():
+        _step_ms(tr, raw, warmup)
+    for _ in range(rounds):
+        for name, tr in trainers.items():
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            times[name] += _step_ms(tr, raw, timed)
+            if on_card:
+                peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2 ** 30)
+    out = {}
+    for name, ts in times.items():
+        med = float(np.median(ts))
+        out[name] = dict(median_ms=med, runs_ms=ts, samples_per_s=batch * 1e3 / med,
+                         peak_gib=peaks[name])
+        log(f"  {name} [{card}]: median step {med:.2f} ms ({', '.join(f'{t:.1f}' for t in ts)}),"
+            f" {batch * 1e3 / med:.2f} samples/s, peak device memory {peaks[name]:.2f} GiB")
+    return out
+
+
+def _spawn_ranks(spec, world, tmp, timeout=600):
+    """``world`` gloo rank processes of ``ddp_worker`` on ``spec``; their results."""
+    import os
+
+    inp = os.path.join(tmp, "ddp_in.pt")
+    torch.save(spec, inp)
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-worker", str(r), str(world),
+                 os.path.join(tmp, "rdzv"), inp, os.path.join(tmp, f"ddp_out{r}.pt")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {world} failed:\n{text[-4000:]}")
+    return [torch.load(os.path.join(tmp, f"ddp_out{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def ddp_worker(rank, world, rendezvous, inp, out):
+    """One rank of phase 6a's gloo run: the Trainer's DDP step on its rows of the
+    global batch, on the device of the spec (all ranks on one card)."""
+    import torch.distributed as dist
+
+    from poem_v2_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(inp, weights_only=False)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=int(rank),
+                            world_size=int(world))
+    try:
+        model, aux = _train_model(spec["model_cfg"], spec["device"], torch.float32,
+                                  state=spec["state"])
+        trainer = Trainer(model, aux, spec["train_cfg"], spec["model_cfg"]["LOSS"])
+        res = _record_step(trainer, spec["batch"])
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, out)
+
+
+def phase_ddp(results, device="cuda", model_cfg=None, image=256, views=8, batch=8,
+              timing_dtype=torch.bfloat16, warmup=2, timed=3, rounds=2):
+    """Phase 6a: the Trainer under ``torch.distributed`` at medium's full width
+    (``model_cfg``: a rehearsal on the CPU passes a small one). World size 1 over
+    NCCL (gloo on the CPU) against the single-process step, bit for bit in
+    float32 with deterministic algorithms, then both timed in ``timing_dtype``;
+    two gloo ranks of B/2 against the single-process B step in float32 at dropout
+    0. Returns the DDP step's launches per step."""
+    import copy
+    import os
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from poem_v2_tpu_torch.configs import MEDIUM
+    from poem_v2_tpu_torch.data.synthetic import SyntheticMultiviewDataset
+    from poem_v2_tpu_torch.training.trainer import Trainer
+
+    model_cfg = model_cfg or MEDIUM["MODEL"]
+    train_cfg = MEDIUM["TRAIN"]
+    on_card = device == "cuda"
+    card = gpu_line()
+    log(f"phase 6a: data parallel (DistributedDataParallel), B{batch}, {views} views at "
+        f"{image} px: world 1 over {'NCCL' if on_card else 'gloo'} and 2 gloo ranks on one "
+        f"{'card' if on_card else 'CPU'} against the single-process step")
+    raw = SyntheticMultiviewDataset(batch_size=batch, view_max=views, view_range=(1, views),
+                                    image_size=image, seed=3).sample_batch()
+    base, _ = _train_model(model_cfg, "cpu", torch.float32)
+    state = base.state_dict()
+    del base
+    out = {}
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # (i) world 1 against the single process, float32, bit for bit: deterministic
+            # convolutions and every op's deterministic algorithm (the gathers' backward
+            # scatters would sum in a racing order otherwise). A Trainer built outside
+            # the process group steps as a single process; one built inside it wraps
+            # the model in DDP
+            backend = "nccl" if on_card else "gloo"
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                model, aux = _train_model(model_cfg, device, torch.float32, state=state)
+                single = _record_step(Trainer(model, aux, train_cfg, model_cfg["LOSS"]), raw)
+                del model
+                dist.init_process_group(backend, init_method=f"file://{tmp}/rdzv1", rank=0,
+                                        world_size=1)
+                model, aux = _train_model(model_cfg, device, torch.float32, state=state)
+                trainer = Trainer(model, aux, train_cfg, model_cfg["LOSS"])
+                if not isinstance(trainer.net, torch.nn.parallel.DistributedDataParallel):
+                    raise AssertionError("the Trainer in a process group runs no DDP")
+                world1 = _record_step(trainer, raw)
+                del model, trainer
+            dist.destroy_process_group()
+            notes = sorted({str(w.message).splitlines()[0][:120] for w in caught})
+            if notes:
+                log("  warnings in the float32 steps: " + " | ".join(notes))
+            _same_bits("DDP world 1 vs single process (float32)", world1, single)
+            _check_launches("DDP world 1 step (float32)", world1["launches"], single["launches"])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det[:2]
+            torch.use_deterministic_algorithms(det[2])
+
+            # (ii) both timed in turns in timing_dtype; the DDP step's launches
+            trainers = {"single process": Trainer(
+                *_train_model(model_cfg, device, timing_dtype, state=state), train_cfg,
+                model_cfg["LOSS"])}
+            dist.init_process_group(backend, init_method=f"file://{tmp}/rdzv2", rank=0,
+                                    world_size=1)
+            trainers["DDP world 1"] = Trainer(
+                *_train_model(model_cfg, device, timing_dtype, state=state), train_cfg,
+                model_cfg["LOSS"])
+            out["timing"] = _time_in_turns(trainers, raw, batch, card, warmup, timed, rounds)
+            if on_card:  # one more step of each under the profiler: device busy and idle
+                out["profile"] = {}
+                for name, tr in trainers.items():
+                    log(f"  {name}, profiled:")
+                    out["profile"][name] = profile_train_step(
+                        tr, tr.to_device(raw), out["timing"][name]["median_ms"])
+            ddp_launches = _record_step(trainers["DDP world 1"], raw)["launches"]
+            single_launches = _record_step(trainers["single process"], raw)["launches"]
+            _check_launches("DDP world 1 step", ddp_launches, single_launches)
+            quiet = [k for k in TRAIN_PATH_KERNELS if on_card and not ddp_launches[k]]
+            if quiet:
+                raise AssertionError(f"kernels the DDP step did not launch: {quiet}")
+            del trainers
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det[:2]
+            torch.use_deterministic_algorithms(det[2])
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (iii) two gloo ranks of B/2 against the single process's B, float32, dropout 0
+        model, aux = _train_model(model_cfg, device, torch.float32, dropout=0.0, state=state)
+        want = _record_step(Trainer(model, aux, train_cfg, model_cfg["LOSS"]), raw)
+        del model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        cfg0 = copy.deepcopy(model_cfg)
+        cfg0["HEAD"]["TRANSFORMER"]["DROPOUT"] = 0.0
+        t = time.perf_counter()
+        ranks = _spawn_ranks(dict(model_cfg=cfg0, train_cfg=train_cfg, state=state, batch=raw,
+                                  device=device), 2, tmp)
+        log(f"  two gloo ranks ran in {time.perf_counter() - t:.1f} s (process start, build "
+            "and one step each)")
+        _same_bits("rank 1 vs rank 0", ranks[1], ranks[0])
+        out["world2"] = _hold_step(f"2 gloo ranks of B{batch // 2} vs single process B{batch}",
+                                   ranks[0], want, card)
+    out["launches"] = ddp_launches
+    results["ddp"] = out
+    return ddp_launches
+
+
+def phase_no_flash(results, device="cuda", model_cfg=None, image=256, views=8, batch=8,
+                   timing_dtype=torch.bfloat16, warmup=2, timed=3, rounds=2):
+    """Phase 6b: the --no-flash_train step (einsum attention with probability
+    dropout, gathered KNN whose bfloat16 backward is K7) at medium's full width:
+    at dropout 0 in float32 against the flash step on the same batch and
+    weights, with phase 6a's bounds; its launches; its step timed beside the
+    flash one in ``timing_dtype``. Returns its launches per step."""
+    from poem_v2_tpu_torch.configs import MEDIUM
+    from poem_v2_tpu_torch.data.synthetic import SyntheticMultiviewDataset
+    from poem_v2_tpu_torch.training.trainer import Trainer
+
+    model_cfg = model_cfg or MEDIUM["MODEL"]
+    train_cfg = MEDIUM["TRAIN"]
+    card = gpu_line()
+    log(f"phase 6b: the --no-flash_train step, B{batch}, {views} views at {image} px")
+    raw = SyntheticMultiviewDataset(batch_size=batch, view_max=views, view_range=(1, views),
+                                    image_size=image, seed=3).sample_batch()
+    base, _ = _train_model(model_cfg, "cpu", torch.float32)
+    state = base.state_dict()
+    del base
+    # K6 selects by K1's packed keys, which break distance ties within 2**-11
+    # relative by the lowest index; the gathered path selects exactly, as the
+    # JAX package's does. At the same neighbours the two steps are one function:
+    # the no-flash step is held to the flash one with its gathered path fed K1's
+    # selection, then read as shipped beside it, with the share of query rows
+    # whose neighbours differ
+    import poem_v2_tpu_torch.models.bricks.point_transformer as tpt
+    from poem_v2_tpu_torch.ops.knn_attn import knn_select
+    from poem_v2_tpu_torch.ops.points import index_points
+
+    exact = tpt.knn_points
+    rows = [0, 0]
+
+    def k1_selection(query, points, k):
+        idx = knn_select(query, points, k).long()
+        return None, idx, index_points(points, idx)
+
+    def counting(query, points, k):
+        d2, idx, nn_xyz = exact(query, points, k)
+        k1 = knn_select(query, points, k).long()
+        rows[0] += int((idx.sort(-1).values != k1.sort(-1).values).any(-1).sum())
+        rows[1] += idx.shape[0] * idx.shape[1]
+        return d2, idx, nn_xyz
+
+    steps = {}
+    for name, flash, select in (("flash", True, exact), ("k1", False, k1_selection),
+                                ("exact", False, counting)):
+        model, aux = _train_model(model_cfg, device, torch.float32, dropout=0.0,
+                                  use_flash_train=flash, state=state)
+        tpt.knn_points = select
+        try:
+            steps[name] = _record_step(Trainer(model, aux, train_cfg, model_cfg["LOSS"]), raw)
+        finally:
+            tpt.knn_points = exact
+        del model
+        gc.collect()
+    out = {"float32": _hold_step("no-flash step at K1's neighbours vs flash step (float32, "
+                                 "dropout 0)", steps["k1"], steps["flash"], card)}
+    loss = {k: abs(steps["exact"]["metrics"][k] - v) / max(abs(v), 1e-12)
+            for k, v in steps["flash"]["metrics"].items()}
+    log(f"  the no-flash step as shipped (exact neighbours): {rows[0]} of {rows[1]} query rows "
+        "select other neighbours than K1; loss terms vs the flash step: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in loss.items()))
+    out["exact_selection"] = dict(rows_differing=rows[0], rows=rows[1], loss_rel=loss)
+    trainers = {}
+    for name, flash in (("flash step", True), ("no-flash step", False)):
+        model, aux = _train_model(model_cfg, device, timing_dtype, use_flash_train=flash,
+                                  state=state)
+        trainers[name] = Trainer(model, aux, train_cfg, model_cfg["LOSS"])
+    launches = _record_step(trainers["no-flash step"], raw)["launches"]
+    _check_launches("no-flash step", launches, LAUNCHES_PER_NO_FLASH_STEP)
+    out["timing"] = _time_in_turns(trainers, raw, batch, card, warmup, timed, rounds)
+    out["launches"] = launches
+    del trainers
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    results["no_flash"] = out
+    return launches
+
+
+def phase_reference_checkpoint(results, device="cuda", model_cfg=None, arch="HRNet", image=256,
+                               batch=4, views=8):
+    """Phase 6c: medium's random weights (``NORM: frozen_bn``) written under the
+    reference names by the table of ``convert_reference.py``, converted back by
+    ``scripts/torch_convert_checkpoint.py`` and served by
+    ``Predictor.from_config(ckpt_path=)``: its B``batch`` mixed-view forward equals
+    the source model's bit for bit, and K1-K5 launch in it."""
+    import copy
+    import importlib.util
+    import os
+    import tempfile
+
+    from poem_v2_tpu_torch.configs import MEDIUM
+    from poem_v2_tpu_torch.convert_reference import to_reference
+    from poem_v2_tpu_torch.models.poem import create_poem_model
+    from poem_v2_tpu_torch.serving.predictor import Predictor
+
+    cfg = copy.deepcopy(MEDIUM)
+    if model_cfg is not None:
+        cfg["MODEL"] = copy.deepcopy(model_cfg)
+    cfg["MODEL"]["BACKBONE"]["NORM"] = "frozen_bn"
+    cfg["DATA_PRESET"]["IMAGE_SIZE"] = [image, image]
+    log(f"phase 6c: a reference-named checkpoint of {arch} medium (frozen_bn) through "
+        "scripts/torch_convert_checkpoint.py into Predictor.from_config(ckpt_path=)")
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    src, _ = create_poem_model(cfg["MODEL"], device="cpu", generator=torch.Generator().manual_seed(4))
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_convert_checkpoint.py")
+    spec = importlib.util.spec_from_file_location("torch_convert_checkpoint", script)
+    convert = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(convert)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = to_reference(src.state_dict(), arch)
+        torch.save({"state_dict": {f"module.{k}": v for k, v in ref.items()}},
+                   os.path.join(tmp, "released.pth.tar"))
+        cfg_path = os.path.join(tmp, "train_medium.yaml")  # read by stem without PyYAML
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)  # JSON is YAML: PyYAML, where installed, reads it too
+        conv = convert.main(["-c", cfg_path, "--torch-ckpt", os.path.join(tmp, "released.pth.tar"),
+                             "--out", os.path.join(tmp, "port.pt")])
+        if conv["leftover"] or conv["missing"]:
+            raise AssertionError(f"conversion left {conv['leftover'][:5]}, missed "
+                                 f"{conv['missing'][:5]}")
+        pred = Predictor.from_config(cfg, ckpt_path=os.path.join(tmp, "port.pt"), dtype=dtype,
+                                     device=device, view_bucket=views)
+    source = Predictor(src.to(device=device, dtype=dtype), view_bucket=views, image_size=image)
+    rs = np.random.RandomState(9)
+    images, intr, extr = look_at_request(rs, batch, views, image)
+    mask = mixed_view_mask(rs, batch, views)
+    want = source(images, intr, extr, mask)
+    reset_launches()
+    got = pred(images, intr, extr, mask)
+    launches = read_launches()
+    same = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+    log(f"  {conv['converted']} tensors converted; served outputs bit-identical to the source "
+        f"model's: {same}; launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)}")
+    if not all(same.values()):
+        raise AssertionError(f"the converted checkpoint serves other outputs: {same}")
+    quiet = [k for k, n in LAUNCHES_PER_MIXED_FORWARD.items() if n and not launches[k]]
+    if device == "cuda" and quiet:
+        raise AssertionError(f"kernels the served forward did not launch: {quiet}")
+    results["reference_checkpoint"] = dict(converted=conv["converted"], launches=launches)
+    return launches
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(*sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

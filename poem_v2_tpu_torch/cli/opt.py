@@ -1,15 +1,20 @@
 """CLI arguments (counterpart of ``poem_v2_tpu/cli/opt.py``): the same flags, and
 ``--device``.
 
-Flags the port cannot honour raise in :func:`check_args` instead of being
-ignored: a data or model mesh larger than one card (data parallel is not
-ported yet), ``--no-flash_train`` (the port has no attention-probability
-dropout path) and ``--multihost``.
+Data parallel runs one process per card under torchrun
+(``torchrun --nproc_per_node N -m poem_v2_tpu_torch.cli.train ...``); ``-b`` stays
+the global batch. Flags the port cannot honour raise in :func:`check_args`
+instead of being ignored: a ``--mesh_data`` other than torchrun's world size, a
+model mesh (tensor parallel is not ported), and ``--multihost`` outside
+torchrun's environment.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+from ..parallel import mesh
 
 
 def parse_exp_args(argv=None):
@@ -35,19 +40,23 @@ def parse_exp_args(argv=None):
     p.add_argument("--eval_extra", type=str, default="", help="auc | save (draw: not ported)")
     p.add_argument("--view_max", type=int, default=8, help="padded view count")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="data-parallel size: 1 (or unset) only until data parallel is ported")
-    p.add_argument("--mesh_model", type=int, default=1, help="model-parallel size: 1 only")
+                   help="data-parallel ranks: torchrun's world size (the default; another "
+                        "value raises)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel size: 1 only (tensor parallel is not ported)")
     p.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"],
                    help="compute dtype; parameters stay float32")
     p.add_argument("--flash_train", action=argparse.BooleanOptionalAction, default=True,
-                   help="the dense attention kernel (K3 / K3b) in training, without dropout on "
-                        "the attention probabilities: the port's only training path, so "
-                        "--no-flash_train raises")
+                   help="train through the dense attention kernel (K3 / K3b, no dropout on the "
+                        "attention probabilities) and K6 / K6b; --no-flash_train trains the "
+                        "reference's way: attention with probability dropout, gathered KNN "
+                        "neighbourhoods whose backward is K7")
     p.add_argument("--exact_knn", action="store_true",
                    help="accepted and without effect: the port always selects neighbours "
                         "exactly, in eval and in training")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training: not ported (raises)")
+                   help="multi-host training: torchrun's multi-node environment forms the "
+                        "process group")
     p.add_argument("--profile", type=str, default="",
                    help="write a torch.profiler trace of epoch 0's first 20 steps into this dir")
     p.add_argument("--device", type=str, default="cuda",
@@ -58,16 +67,20 @@ def parse_exp_args(argv=None):
 
 def check_args(args):
     """Raise for a flag the port cannot honour (see the module docstring)."""
-    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
+    world = mesh.launched_world_size()
+    if args.mesh_model != 1:
         raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: the port runs on "
-            "one device until data parallel is ported (ROADMAP queue 1, item 3)")
-    if not args.flash_train:
+            f"--mesh_model {args.mesh_model}: tensor parallel is not ported (the widest tier "
+            "trains on one card); data parallel takes --mesh_data")
+    if args.mesh_data not in (None, world):
         raise NotImplementedError(
-            "--no-flash_train: the port trains through the dense attention kernel only; it has "
-            "no attention-probability dropout path")
-    if args.multihost:
-        raise NotImplementedError("--multihost: multi-host training is not ported")
+            f"--mesh_data {args.mesh_data}: data parallel runs one rank a process, and this "
+            f"process was launched into a world of {world}; start {args.mesh_data} with "
+            f"torchrun --nproc_per_node {args.mesh_data}")
+    if args.multihost and not (mesh.in_group() or "WORLD_SIZE" in os.environ):
+        raise NotImplementedError(
+            "--multihost: multi-host training forms its process group from torchrun's "
+            "environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), and none is set")
     if args.eval_extra not in ("", "auc", "save", "draw"):
         raise ValueError(f"--eval_extra {args.eval_extra!r}: one of auc, save, draw")
     return args

@@ -8,8 +8,11 @@ the final block also emits 16 6D rotations and 10 MANO shape parameters
 (``flat_verts``: a Dense(1) over the 799 tokens, then ``mano_linear``).
 
 Training mode (``module.train()``) turns the dropout on and, with grad
-enabled, runs each block under ``torch.utils.checkpoint``: the backward
-recomputes the block, except the kernels' outputs (the dense attention
+enabled, runs each block under ``torch.utils.checkpoint``. ``use_flash_train``
+(the default) trains through the kernels (K3 / K3b, K6 / K6b); without it
+training takes the reference's paths: attention with dropout on the
+probabilities and gathered KNN neighbourhoods whose backward is K7. The
+backward recomputes each block, except the kernels' outputs (the dense attention
 outputs, K6's outputs and neighbour indices), which are kept from the
 forward as the JAX ``save_only_these_names`` policy keeps them
 (:mod:`poem_v2_tpu_torch.ops.remat`), so no kernel runs twice.
@@ -29,18 +32,19 @@ from .bricks.point_transformer import PtCrossAttnBlock, PtSelfAttnBlock
 
 
 class PointerLayer(nn.Module):
-    """Vector self-attention, cross-attention and the Δxyz head. ``use_fused``
-    and ``use_fused_knn`` select the attention path of both blocks
-    (see :mod:`.bricks.point_transformer`)."""
+    """Vector self-attention, cross-attention and the Δxyz head. ``use_fused``,
+    ``use_fused_knn`` and ``use_fused_knn_train`` select the attention path of
+    both blocks (see :mod:`.bricks.point_transformer`)."""
 
     def __init__(self, feat_dim: int, n_neighbor: int, n_neighbor_query: int, init_block: bool,
-                 use_fused: bool = False, use_fused_knn: bool = True):
+                 use_fused: bool = False, use_fused_knn: bool = True,
+                 use_fused_knn_train: bool = True):
         super().__init__()
         self.init_block = init_block
         self.query_self_attn = PtSelfAttnBlock(feat_dim, feat_dim, n_neighbor_query,
-                                               use_fused, use_fused_knn)
+                                               use_fused, use_fused_knn, use_fused_knn_train)
         self.query_cross_attn = PtCrossAttnBlock(feat_dim, feat_dim, n_neighbor,
-                                                 use_fused, use_fused_knn)
+                                                 use_fused, use_fused_knn, use_fused_knn_train)
         self.reg_branch = MLP(feat_dim, feat_dim, 3)
 
     def forward(self, pt_xyz, pt_feats, query_xyz, query_feat, query_anchor_idx=None,
@@ -58,15 +62,17 @@ class PointerLayer(nn.Module):
 class PointMetroBlock(nn.Module):
     def __init__(self, hidden_size: int = 256, num_heads: int = 4, n_neighbor: int = 32,
                  n_neighbor_query: int = 32, init_block: bool = False, dropout: float = 0.1,
-                 parametric_head: bool = False, num_query: int = 799):
+                 parametric_head: bool = False, num_query: int = 799,
+                 use_flash_train: bool = True):
         super().__init__()
         self.embedding = nn.Linear(hidden_size, hidden_size)
         self.drop = nn.Dropout(dropout)
-        self.attn = MultiHeadCrossAttention(hidden_size, num_heads, dropout)
-        self.cross_attn = MultiHeadCrossAttention(hidden_size, num_heads, dropout)
+        self.attn = MultiHeadCrossAttention(hidden_size, num_heads, dropout, use_flash_train)
+        self.cross_attn = MultiHeadCrossAttention(hidden_size, num_heads, dropout,
+                                                  use_flash_train)
         # use_fused stays False here, as in the JAX block: K8 is reached through PointerLayer
         self.vec_attn = PointerLayer(hidden_size, n_neighbor, n_neighbor_query, init_block,
-                                     use_fused=False)
+                                     use_fused=False, use_fused_knn_train=use_flash_train)
         self.ffn = BertFFN(hidden_size, hidden_size * 4, dropout)
         self.parametric_head = parametric_head
         if parametric_head:  # the final block of a parametric decoder
@@ -94,14 +100,15 @@ class PtEmbedDecoder(nn.Module):
 
     def __init__(self, n_blocks: int = 3, hidden_size: int = 256, num_heads: int = 4,
                  n_neighbor: int = 32, n_neighbor_query: int = 32, dropout: float = 0.1,
-                 parametric_output: bool = False, num_query: int = 799):
+                 parametric_output: bool = False, num_query: int = 799,
+                 use_flash_train: bool = True):
         super().__init__()
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             self.add_module(f"block_{i}", PointMetroBlock(
                 hidden_size, num_heads, n_neighbor, n_neighbor_query, init_block=(i == 0),
                 dropout=dropout, parametric_head=parametric_output and i == n_blocks - 1,
-                num_query=num_query))
+                num_query=num_query, use_flash_train=use_flash_train))
 
     def forward(self, query_xyz, query_feats, pt_xyz, pt_feats,
                 query_anchor_idx: Optional[torch.Tensor] = None,

@@ -116,7 +116,7 @@ class POEMGeneralizedHead(nn.Module):
                  anchor_xyz: Optional[np.ndarray] = None,
                  n_blocks: int = 3, num_heads: int = 4, n_neighbor: int = 32,
                  n_neighbor_query: int = 32, dropout: float = 0.1,
-                 parametric_output: bool = False, mano_layer=None):
+                 parametric_output: bool = False, mano_layer=None, use_flash_train: bool = True):
         super().__init__()
         if parametric_output and mano_layer is None:
             raise ValueError("parametric_output needs the MANO layer")
@@ -129,7 +129,7 @@ class POEMGeneralizedHead(nn.Module):
         self.query_feat_embedding = nn.Parameter(torch.empty(num_query, pt_feat_dim))
         self.transformer = PtEmbedDecoder(n_blocks, pt_feat_dim, num_heads, n_neighbor,
                                           n_neighbor_query, dropout, parametric_output,
-                                          num_query)
+                                          num_query, use_flash_train)
         # float32 geometry constants, kept out of the state dict and of dtype casts
         self._np_consts = {
             "bps": np.asarray(bps_basis, np.float32),

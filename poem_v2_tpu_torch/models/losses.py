@@ -4,6 +4,14 @@ Heatmap-2D joint loss (x10), 3D joints L2 (+ joints from the mesh by the
 MANO J-regressor), 3D verts L1, the clamped multi-camera 2D reprojection
 loss and the optional MANO pose / shape MSE, over padded (B, V) batches
 with a view mask. All float32.
+
+Under data parallel (a process group of R > 1 ranks, each holding its rows
+of the global batch) every term is built so that the mean of the ranks'
+values, and so ``DistributedDataParallel``'s mean of their gradients, is the
+term of the global batch: a masked view mean divides the rank's sum by the
+valid views of the whole batch (all-reduced) and multiplies by R, and a plain
+mean is the local mean, since every rank holds as many rows. Outside such a
+group the arithmetic is the single-process one, bit for bit.
 """
 
 from __future__ import annotations
@@ -14,15 +22,28 @@ from typing import Dict, Mapping, Tuple
 import torch
 
 from ..geometry.camera import cam_extr_transf, cam_intr_projection, invert_rigid, mano_to_openpose
+from ..parallel import mesh
+
+
+def count_over_ranks(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(``count`` summed over the ranks of the process group, its world size);
+    ``(count, 1)`` outside a group of more than one rank."""
+    world = mesh.world_size()
+    if world == 1:
+        return count, 1
+    return mesh.all_reduce_sum(count), world
 
 
 def masked_view_mean(x: torch.Tensor, view_mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x (B, V, ...) over valid views and all trailing dims."""
+    """Mean of x (B, V, ...) over valid views and all trailing dims; under data
+    parallel this rank's share of the global batch's mean (see the module)."""
     mask = view_mask.to(x.dtype)
     extra = x.dim() - 2
     total = (x * mask.reshape(mask.shape + (1,) * extra)).sum()
-    denom = mask.sum() * math.prod(x.shape[2:]) if extra else mask.sum()
-    return total / torch.clamp_min(denom, 1.0)
+    count, world = count_over_ranks(mask.sum())
+    denom = count * math.prod(x.shape[2:]) if extra else count
+    mean = total / torch.clamp_min(denom, 1.0)
+    return mean if world == 1 else mean * world
 
 
 def reprojection_loss(pred_points: torch.Tensor, cam_extr: torch.Tensor, cam_intr: torch.Tensor,

@@ -205,7 +205,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                       device: torch.device | str = "cuda",
                       generator: Optional[torch.Generator] = None,
-                      param_dtype: Optional[torch.dtype] = None
+                      param_dtype: Optional[torch.dtype] = None, use_flash_train: bool = True
                       ) -> Tuple[POEMNet, Dict[str, Any]]:
     """Build the POEMNet (``BACKBONE.TYPE`` HRNet or resnet18 / 34 / 50) from the
     ``MODEL`` section of a config.
@@ -214,7 +214,10 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
     ``state_dict`` over them for real weights. ``dtype`` is the compute
     dtype and ``param_dtype`` (default ``dtype``) the parameters' one:
     float32 parameters with bfloat16 compute is the training setting, as
-    flax keeps it. ``device`` defaults to the card and there is no silent
+    flax keeps it. ``use_flash_train`` (the JAX factory's flag, default on)
+    trains through the dense attention kernel and K6; off, training takes the
+    reference's attention-probability dropout and gathered KNN neighbourhoods
+    (``--no-flash_train``). ``device`` defaults to the card and there is no silent
     move to the CPU: without a CUDA device this raises; pass ``"cpu"`` to
     run the kernels' plain versions there.
     Returns (model in eval mode on ``device``, aux with the BPS basis, the
@@ -272,7 +275,7 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                 n_blocks=tr_cfg["N_BLOCKS"], num_heads=tr_cfg["NUM_ATTENTION_HEADS"],
                 n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"],
                 dropout=tr_cfg.get("DROPOUT", 0.1), parametric_output=parametric,
-                mano_layer=mano_layer if parametric else None),
+                mano_layer=mano_layer if parametric else None, use_flash_train=use_flash_train),
             num_joints=cfg.get("DATA_PRESET", {}).get("NUM_JOINTS", 21),
             center_idx=cfg.get("DATA_PRESET", {}).get("CENTER_IDX", 0),
             ref_noise=float(cfg.get("REF_NOISE", 0.01)),

@@ -7,7 +7,7 @@ row 0); the model runs in bfloat16 by default; numpy in, numpy out.
 
 Typical use::
 
-    pred = Predictor.from_config(MEDIUM, state_dict=sd, device="cuda")
+    pred = Predictor.from_config(MEDIUM, ckpt_path="medium.pt", device="cuda")
     out = pred(images, cam_intr, cam_extr)   # ragged views / batch are padded
     out["joints_3d"]                         # (B, 21, 3) master space
 """
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.poem import create_poem_model
+from ..utils.recorder import Recorder
 
 
 class Predictor:
@@ -32,15 +33,21 @@ class Predictor:
         self.device = next(model.parameters()).device
 
     @classmethod
-    def from_config(cls, cfg: dict, state_dict: Optional[dict] = None, view_bucket: int = 8,
+    def from_config(cls, cfg: dict, ckpt_path: Optional[str] = None,
+                    state_dict: Optional[dict] = None, view_bucket: int = 8,
                     dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cuda",
                     seed: int = 0) -> "Predictor":
         """Build from a config with ``MODEL`` (and optionally ``DATA_PRESET``) sections.
 
-        Without ``state_dict`` the weights are random, drawn from ``seed``. A
-        ``state_dict`` is a converted JAX checkpoint (:mod:`..convert`)."""
+        ``ckpt_path`` is a port checkpoint or weights file (what ``--reload``
+        reads: a train checkpoint, or the output of ``scripts/torch_convert_checkpoint.py``
+        or ``scripts/torch_export_checkpoint.py``); ``state_dict`` a converted JAX
+        parameter tree (:mod:`..convert`). Without either the weights are random,
+        drawn from ``seed``."""
         model, _ = create_poem_model(cfg["MODEL"], dtype=torch.float32, device="cpu",
                                      generator=torch.Generator().manual_seed(seed))
+        if ckpt_path is not None:
+            Recorder.load_params(ckpt_path, model)
         if state_dict is not None:
             model.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in
                                    state_dict.items()})

@@ -4,9 +4,11 @@
 A checkpoint is one ``torch.save`` file holding what :meth:`Trainer.state_dict`
 returns (parameters, optimiser state, step and the Trainer's generator) and
 the epoch: ``exp/<exp_id>_<time>/checkpoints/checkpoint.pt``, with a copy
-``checkpoint_<epoch + 1>.pt`` every ``snapshot_every`` epochs. The JAX
-package's orbax checkpoint directories are not read here (ROADMAP queue 1,
-item 6).
+``checkpoint_<epoch + 1>.pt`` every ``snapshot_every`` epochs. Weights-only
+files (``{"params": state_dict}``) come from ``scripts/torch_convert_checkpoint.py``
+(the released PyTorch checkpoints), ``scripts/torch_prepare_hrnet.py`` (an
+ImageNet HRNet, ``backbone.*`` only) and ``scripts/torch_export_checkpoint.py``
+(the JAX package's orbax directories, which are not read here).
 """
 
 from __future__ import annotations
@@ -34,9 +36,8 @@ def resolve_checkpoint(path: str) -> str:
             return cand
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} holds no {CKPT_NAME}: the port reads its own torch.save checkpoints; "
-            "orbax checkpoints of the JAX package wait for the export script (ROADMAP queue 1, "
-            "item 6)")
+            f"{path} holds no {CKPT_NAME}: the port reads its own torch.save files; convert an "
+            "orbax checkpoint of the JAX package with scripts/torch_export_checkpoint.py")
     raise FileNotFoundError(f"no checkpoint at {path}")
 
 
@@ -109,11 +110,27 @@ class Recorder:
                 "read_s": time.perf_counter() - t}
 
     @staticmethod
+    def read_params(path: str) -> Dict[str, torch.Tensor]:
+        """The state dict of a checkpoint or weights file (its ``params``)."""
+        state = torch.load(resolve_checkpoint(path), map_location="cpu", weights_only=False)
+        return state["params"] if "params" in state else state
+
+    @staticmethod
     def load_params(path: str, model: torch.nn.Module) -> None:
         """Weights only (``--reload`` / ``MODEL.PRETRAINED``): the checkpoint's
         parameters into ``model``, every key once."""
-        state = torch.load(resolve_checkpoint(path), map_location="cpu", weights_only=False)
-        model.load_state_dict(state["params"] if "params" in state else state)
+        model.load_state_dict(Recorder.read_params(path))
+
+    @staticmethod
+    def load_backbone(path: str, model: torch.nn.Module) -> None:
+        """The ``backbone.*`` weights of a file into ``model.backbone``, every key
+        of the backbone once (``MODEL.PRETRAINED_BACKBONE``)."""
+        params = Recorder.read_params(path)
+        backbone = {k[len("backbone."):]: v for k, v in params.items()
+                    if k.startswith("backbone.")}
+        if not backbone:
+            raise ValueError(f"{path} holds no backbone.* weights")
+        model.backbone.load_state_dict(backbone)
 
     # -- metric text dumps (reference recorder.py:140-159) ------------------
     @master_only

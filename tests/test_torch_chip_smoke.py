@@ -296,3 +296,43 @@ def test_phase_front_doors_rehearsal(on_cpu, one_thread, monkeypatch):
     assert 0.0 <= out["synthetic_eval"]["results"]["auc_j"] <= 1.0
     assert results["front_doors"] is out
     json.dumps({k: {kk: vv for kk, vv in v.items()} for k, v in out.items()})
+
+
+def test_phase_6_rehearsal(on_cpu, one_thread, monkeypatch):
+    """Phases 6a-6c on the CPU with the tiny HRNet model (``frozen_bn``, 2 decoder
+    blocks), B2 of 2 views at 64 px, float32 timing: the world-1 group (gloo
+    here) bit for bit against the single process, two rank processes of the
+    script against the single process's step, the no-flash step against the
+    flash one, and the reference-named checkpoint served bit-identically (B2 of
+    3 views); the launch counts each path must show on the card."""
+    from torch_port_helpers import tiny_cfg
+
+    checked = {}
+    monkeypatch.setattr(chip_smoke, "_check_launches",
+                        lambda name, got, want: checked.__setitem__(name, (got, want)))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the rank processes, as this one
+    results = {}
+    cfg = tiny_cfg(norm="frozen_bn").to_dict()
+    small = dict(device="cpu", model_cfg=cfg, image=64, views=2, batch=2,
+                 timing_dtype=torch.float32, warmup=0, timed=1, rounds=1)
+    zeros = {k: 0 for k in chip_smoke.KERNELS}
+    assert chip_smoke.phase_ddp(results, **small) == zeros
+    assert chip_smoke.phase_no_flash(results, **small) == zeros
+    assert chip_smoke.phase_reference_checkpoint(results, device="cpu", model_cfg=cfg, image=64,
+                                                 batch=2, views=3) == zeros
+    assert set(checked) == {"DDP world 1 step (float32)", "DDP world 1 step", "no-flash step"}
+    assert checked["no-flash step"][1] == {**zeros, "scatter_add_rows": 4}
+    assert chip_smoke.TRAIN_PATH_KERNELS == [
+        "dense_cross_attention", "dense_cross_attention_bwd", "fused_knn_vector_attention",
+        "knn_vector_attention_trainable", "knn_vector_attention_trainable_bwd",
+        "scatter_add_rows"]
+    ddp, nf = results["ddp"], results["no_flash"]
+    assert set(ddp["timing"]) == {"single process", "DDP world 1"}
+    assert set(nf["timing"]) == {"flash step", "no-flash step"}
+    for readings in (ddp["world2"], nf["float32"]):
+        assert max(readings["loss_rel"].values()) <= chip_smoke.DDP_LOSS_RTOL
+        assert set(readings["grad_rel"]) == {"backbone", "feat_neck", "uv_neck", "head",
+                                             "head.transformer.block_0",
+                                             "head.transformer.block_1"}
+    assert results["reference_checkpoint"]["converted"] > 1000
+    json.dumps(results)

@@ -119,9 +119,12 @@ def test_train_cli_streaming_feed_profiles_epoch_zero(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_data", "2"], "data parallel"), (["--mesh_model", "2"], "data parallel"),
-    (["--no-flash_train"], "dropout"), (["--multihost"], "multi-host"),
+    (["--mesh_data", "1", "--mesh_model", "4"], "tensor parallel"),
+    (["--multihost"], "multi-host"),
 ])
 def test_flags_the_port_cannot_honour_raise(flags, match):
+    """Outside torchrun (a world of one): more data-parallel ranks than the
+    world, a model mesh, and --multihost without torchrun's environment."""
     with pytest.raises(NotImplementedError, match=match):
         parse_exp_args(["-c", "x.yaml", *flags])
 
@@ -129,10 +132,12 @@ def test_flags_the_port_cannot_honour_raise(flags, match):
 def test_default_device_is_the_card_and_inert_flags_parse():
     args = parse_exp_args(["-c", "x.yaml", "--exact_knn", "--mesh_data", "1"])
     assert args.device == "cuda" and args.exact_knn and args.flash_train
+    assert not parse_exp_args(["-c", "x.yaml", "--no-flash_train"]).flash_train
 
 
 def test_what_waits_raises(tmp_path, monkeypatch):
-    """--eval_extra draw (item 8), an orbax directory (item 6), PRETRAINED_BACKBONE."""
+    """--eval_extra draw (item 8); an orbax directory, as a checkpoint and as
+    PRETRAINED_BACKBONE, names the export script."""
     monkeypatch.chdir(tmp_path)
     path = _write(tmp_path, _cfg())
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -140,9 +145,9 @@ def test_what_waits_raises(tmp_path, monkeypatch):
     orbax = tmp_path / "orbax_ckpt"
     orbax.mkdir()
     (orbax / "_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="torch_export_checkpoint"):
         Recorder.load_params(str(orbax), torch.nn.Linear(1, 1))
     cfg = _cfg()
     cfg["MODEL"]["PRETRAINED_BACKBONE"] = str(orbax)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="torch_export_checkpoint"):
         train_cli.main(["-c", _write(tmp_path, cfg, "bb.yaml"), *BASE])

@@ -63,13 +63,13 @@ def _cfg(parametric=False):
     return cfg
 
 
-def _run_jax_step(cfg, tweak_params=None):
-    """One JAX value_and_grad + optimiser update of ``cfg``'s model on the
-    fixed batch; ``tweak_params(params)`` edits the filled parameters first."""
+def _jax_step_inputs(cfg, tweak_params=None):
+    """What ``_run_jax_step`` steps on: the fixed batch (2 samples, 1 and 3 of 3
+    views), the JAX model of ``cfg`` and its aux, its filled parameters
+    (``tweak_params(params)`` edits them first), the noise and dropout keys and
+    the reference-jitter draws they give."""
     from poem_v2_tpu.data.synthetic import SyntheticMultiviewDataset
-    from poem_v2_tpu.models.losses import poem_loss
     from poem_v2_tpu.models.poem import create_poem_model
-    from poem_v2_tpu.training.optim import build_optimizer
 
     batch = SyntheticMultiviewDataset(batch_size=2, view_max=3, view_range=(1, 3),
                                       image_size=64, seed=2).sample_batch()
@@ -85,11 +85,25 @@ def _run_jax_step(cfg, tweak_params=None):
         tweak_params(variables["params"])
     _, noise_rng, drop_rng = jax.random.split(jax.random.PRNGKey(1), 3)
     draws = _RefDraws().apply({}, 2, rngs={"noise": noise_rng})
+    return dict(cfg=cfg, batch=batch, jb=jb, args=args, model=model, aux=aux,
+                variables=variables, noise_rng=noise_rng, drop_rng=drop_rng,
+                draws=jax.tree_util.tree_map(np.asarray, draws))
+
+
+def _run_jax_step(cfg, tweak_params=None, inputs=None):
+    """One JAX value_and_grad + optimiser update of ``cfg``'s model on the
+    fixed batch (``inputs``: what ``_jax_step_inputs`` returned for ``cfg``)."""
+    from poem_v2_tpu.models.losses import poem_loss
+    from poem_v2_tpu.training.optim import build_optimizer
+
+    inp = inputs or _jax_step_inputs(cfg, tweak_params)
+    model, aux, jb, args, variables = (inp[k] for k in ("model", "aux", "jb", "args",
+                                                       "variables"))
     j_reg = aux["mano_layer"].j_regressor
 
     def compute(params):
         preds = model.apply({"params": params}, *args, train=True,
-                            rngs={"noise": noise_rng, "dropout": drop_rng})
+                            rngs={"noise": inp["noise_rng"], "dropout": inp["drop_rng"]})
         loss, loss_dict = poem_loss(preds, jb, j_regressor=j_reg, loss_cfg=cfg.LOSS,
                                     transformer_center_idx=aux["transformer_center_idx"],
                                     parametric=aux.get("parametric_output", False))
@@ -102,7 +116,7 @@ def _run_jax_step(cfg, tweak_params=None):
     updates, _ = tx.update(grads, tx.init(variables["params"]), variables["params"])
     new_params = optax.apply_updates(variables["params"], updates)
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
-    return dict(cfg=cfg, batch=batch, variables=variables, draws=to_np(draws),
+    return dict(cfg=cfg, batch=inp["batch"], variables=variables, draws=inp["draws"],
                 loss=float(loss), loss_dict=to_np(loss_dict), ref_joints=np.asarray(ref_joints),
                 grads=flax_to_state_dict({"params": to_np(grads)}),
                 new_params=flax_to_state_dict({"params": to_np(new_params)}))
