@@ -125,12 +125,33 @@ non-zero:
    (``NORM: frozen_bn``) under the released checkpoints' names through
    ``scripts/torch_convert_checkpoint.py`` into ``Predictor.from_config(ckpt_path=)``:
    the B4 mixed-view forward bit-identical to the source model's, K1-K5 launched.
+7. the data layer and ``eval_single`` (``poem_v2_tpu_torch/data``,
+   ``cli/eval_single.py``): (a) the image codecs on the card: nvJPEG
+   (``csrc/jpeg.cpp``) against OpenCV's decodes of the committed fixtures
+   (``tests/torch_fixtures/codec``; max and mean absolute difference and the
+   share of values that differ, held to each fixture's ``NVJPEG_LIMITS``, with
+   three wrong decodes planted on nvJPEG's output beside them), the PNG
+   decoder bit-exact and timed (Sub and Paeth rows), a q95 nvJPEG encode and
+   decode of the source over ``JPEG_PSNR_FLOOR``; (b) the port's ShardDumper
+   writes 64 samples of 8 views of 640x480 (a posed MANO hand, cameras around
+   it; labels in the shard schema) as two shards of 32, encoding on the card; (c) ``build_eval_cfg("DexYCB",
+   "medium", ...)`` on them with a checkpoint of medium's init weights written
+   by the Recorder, through ``cli/eval.py:evaluate`` in bf16 at B8 with the
+   protocol's random 2-8 views, ``WORKERS`` 0 and 4 (threads): samples/s,
+   launches a batch (K1 4, K2 2, K3 6, K4 1, K5 between 1 and 1 a batch),
+   every view decoded by nvJPEG, finite measures, peak GiB; the serial stages
+   (decode and transform ms a view, collate and H2D ms a batch); the same loop
+   profiled (device busy, idle share of that loop's own time) with its first
+   batch equal to a direct model call bit for bit; 2 spawn workers (each its
+   own CUDA context) against 2 threads over one shard.
 
-The second-to-last line is a JSON object with one entry per kernel (``ms``
+The line before the kernels line is a JSON object ``{"data": ...}`` with phase
+7's readings. The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
 K9's also their selections' times from phase 1e under ``selection``; K3's and
 K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
-on phase 5's paths under ``front_door_launches``); the last
+on phase 5's paths under ``front_door_launches``, on phase 7's under
+``data_launches``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
 without a CUDA device it fails before printing any result.
 """
@@ -1477,6 +1498,8 @@ def main() -> int:
     ddp_launches = phase_ddp(results)
     no_flash_launches = phase_no_flash(results)
     phase_reference_checkpoint(results)
+    codec = phase_codec(results)
+    data = phase_data(results)
     path_launches = {
         **{k: launches[k] for k, n in LAUNCHES_PER_FORWARD.items() if n},
         "scrambled_merge_gather": tier_launches["scrambled_merge_gather"],
@@ -1547,6 +1570,8 @@ def main() -> int:
         # one step of phase 6a's DDP (world 1, NCCL) and of 6b's --no-flash_train path
         e["ddp_launches"] = ddp_launches[e["name"]]
         e["no_flash_launches"] = no_flash_launches[e["name"]]
+        # phase 7's eval_single path on shards, WORKERS 4
+        e["data_launches"] = data["eval_workers_4"]["launches"][e["name"]]
     # every kernel the synthetic paths run launched there
     quiet = [k for k, n in LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items()
              if n and not front["synthetic_train"]["launches"][k]]
@@ -1559,6 +1584,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels that no path launched: {missing}")
     log(gpu_line())
+    print(json.dumps({"data": {"codec": codec, **data}}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2933,6 +2959,530 @@ def phase_reference_checkpoint(results, device="cuda", model_cfg=None, arch="HRN
         raise AssertionError(f"kernels the served forward did not launch: {quiet}")
     results["reference_checkpoint"] = dict(converted=conv["converted"], launches=launches)
     return launches
+
+
+
+# phase 7 (a): nvJPEG against OpenCV's decodes of the committed fixtures
+# (tests/torch_fixtures/codec, scripts/torch_make_codec_fixture.py). nvJPEG's IDCT
+# and chroma upsampling are not libjpeg-turbo's "islow + fancy upsampling": the
+# limits below are a decoder's difference, one set a fixture from the first
+# measurement on an H100 (PERF.md, phase 7: 640x480 max 97, mean 0.935, share
+# 0.602; 224x224 17, 0.739, 0.571) and not to be widened to pass
+CODEC_DIR = "tests/torch_fixtures/codec"
+NVJPEG_LIMITS = {"q95_640x480": dict(max_abs=100, mean_abs=1.0, share=0.65),
+                 "q95_224x224": dict(max_abs=20, mean_abs=0.8, share=0.6)}
+JPEG_PSNR_FLOOR = 35.0
+
+
+def _ycc(img):
+    """JFIF's full-range YCbCr of a uint8 RGB image (float64 planes)."""
+    r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+    return (0.299 * r + 0.587 * g + 0.114 * b,
+            -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+            0.5 * r - 0.418688 * g - 0.081312 * b + 128)
+
+
+def _rgb(y, cb, cr):
+    rgb = np.stack([y + 1.402 * (cr - 128), y - 0.344136 * (cb - 128) - 0.714136 * (cr - 128),
+                    y + 1.772 * (cb - 128)], axis=-1)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+def planted_decodes(img):
+    """Wrong decodes planted on a decoder's output, to show what the limits catch:
+    the channels in BGR order; the chroma averaged over 2x2 blocks and repeated (a
+    decoder's nearest-neighbour 4:2:0 upsampling); the chroma one pixel to the left
+    (half a chroma sample off). The YCbCr round trip alone is exact."""
+    h, w = img.shape[:2]
+    y, cb, cr = _ycc(img)
+
+    def blocks(c):
+        p = np.pad(c, ((0, h % 2), (0, w % 2)), mode="edge")
+        m = p.reshape(p.shape[0] // 2, 2, p.shape[1] // 2, 2).mean(axis=(1, 3))
+        return m.repeat(2, 0).repeat(2, 1)[:h, :w]
+
+    def left(c):
+        return np.concatenate([c[:, 1:], c[:, -1:]], axis=1)
+
+    return {"channels_swapped": np.ascontiguousarray(img[..., ::-1]),
+            "chroma_nearest": _rgb(y, blocks(cb), blocks(cr)),
+            "chroma_shifted": _rgb(y, left(cb), left(cr))}
+
+
+def _diff(got, want):
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return dict(max_abs=int(d.max()), mean_abs=float(d.mean()), share=float((d > 0).mean()))
+
+
+def paeth_png(img):
+    """A PNG of ``img`` ((H, W, 3) uint8 RGB) with every row Paeth-filtered, as
+    libpng's adaptive filtering stores most rows of camera frames: the PNG
+    decoder's slowest path."""
+    import struct
+    import zlib
+
+    from poem_v2_tpu_torch.data.codec import PNG_MAGIC
+
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), cur[:-1]])
+    left = np.pad(cur, ((0, 0), (c, 0)))[:, :-c]
+    upleft = np.pad(up, ((0, 0), (c, 0)))[:, :-c]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), 4, np.int16), (cur - pred) % 256]).astype(np.uint8)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def _psnr(a, b):
+    """Peak signal-to-noise ratio of two uint8 images in dB; None where they are equal."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return None if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def _db(x) -> str:
+    return "identical" if x is None else f"{x:.2f} dB"
+
+
+def phase_codec(results, device="cuda", limits=NVJPEG_LIMITS, psnr_floor=JPEG_PSNR_FLOOR,
+                iters=20):
+    """Phase 7a: the data layer's decoder on ``device`` (nvJPEG on the card) against
+    OpenCV's decodes of the fixture JPEGs (max and mean absolute difference, share
+    of values that differ, each held to the fixture's ``limits``) and three wrong
+    decodes planted on its output (the channel swap must be caught); the PNG
+    decoder bit-exact and timed on the fixture (Sub rows) and on the source
+    Paeth-filtered; and the 640x480 source encoded at q95 on ``device`` and
+    decoded again (PSNR held to ``psnr_floor``; OpenCV's q95 encode's PSNR beside
+    it)."""
+    import os
+
+    from poem_v2_tpu_torch.data import codec
+
+    log(f"phase 7a: image codecs on {device} against OpenCV's decodes of {CODEC_DIR}")
+    ref = np.load(os.path.join(CODEC_DIR, "decodes.npz"))
+    read = lambda name: open(os.path.join(CODEC_DIR, name), "rb").read()
+
+    def timed(buf):
+        got = codec.decode_image(buf, device)
+        t = time.perf_counter()
+        for _ in range(iters):
+            codec.decode_image(buf, device)
+        return got, (time.perf_counter() - t) * 1e3 / iters
+
+    on_card = device.startswith("cuda")
+    out, bad = {}, []
+    for name in ("q95_640x480", "q95_224x224"):
+        got, ms = timed(read(f"{name}.jpg"))
+        want = ref[name]
+        if got.shape != want.shape or got.dtype != np.uint8:
+            raise AssertionError(f"{name}: decoded {got.shape} {got.dtype}, want {want.shape}")
+        lim = limits[name] if limits is not None else {}
+        row = dict(**_diff(got, want), ms=ms, psnr_vs_opencv=_psnr(got, want),
+                   psnr_vs_source=(_psnr(got, ref["source"]) if name == "q95_640x480" else None),
+                   limits=lim, planted={})
+        log(f"  {name}: max |d| {row['max_abs']}, mean |d| {row['mean_abs']:.4f}, differing "
+            f"{100 * row['share']:.2f}% of values (limits {lim}), PSNR vs OpenCV "
+            f"{_db(row['psnr_vs_opencv'])}; {ms:.3f} ms a decode (host clock, copy to the host "
+            "included)")
+        bad += [f"{name} {k} {row[k]} > {v}" for k, v in lim.items() if row[k] > v]
+        for kind, wrong in planted_decodes(got).items():
+            p = _diff(wrong, want)
+            p["caught"] = any(p[k] > v for k, v in lim.items())
+            row["planted"][kind] = p
+            log(f"    planted {kind}: max |d| {p['max_abs']}, mean |d| {p['mean_abs']:.4f}, "
+                f"differing {100 * p['share']:.2f}%: "
+                + ("caught" if p["caught"] else "NOT caught"))
+        if lim and not row["planted"]["channels_swapped"]["caught"]:
+            bad.append(f"{name}: the limits pass a decode with its channels swapped")
+        out[name] = row
+    png = {}
+    for kind, buf in (("sub", read("source.png")), ("paeth", paeth_png(ref["source"]))):
+        got, ms = timed(buf)
+        if not np.array_equal(got, ref["source"]):
+            raise AssertionError(f"the PNG decoder is not bit-exact ({kind} rows)")
+        png[kind] = dict(bytes=len(buf), ms=ms)
+    out["png_640x480"] = png
+    enc = codec.encode_jpeg(ref["source"], 95, device)
+    back = codec.decode_image(enc, device)
+    out["encode_q95"] = dict(bytes=len(enc), psnr=_psnr(back, ref["source"]),
+                             opencv_bytes=len(read("q95_640x480.jpg")),
+                             opencv_psnr=_psnr(ref["q95_640x480"], ref["source"]))
+    e = out["encode_q95"]
+    log(f"  PNG 640x480 bit-exact: {png['sub']['ms']:.3f} ms a decode with Sub rows (the "
+        f"fixture), {png['paeth']['ms']:.3f} ms with Paeth rows (host clock); q95 encode on "
+        f"{device}: {e['bytes']} bytes, PSNR {_db(e['psnr'])} after its own decode (OpenCV's "
+        f"q95: {e['opencv_bytes']} bytes, {_db(e['opencv_psnr'])})")
+    if psnr_floor is not None and e["psnr"] < psnr_floor:
+        bad.append(f"q95 round trip PSNR {e['psnr']:.2f} < {psnr_floor}")
+    if bad:
+        raise AssertionError("codec past its limits: " + "; ".join(bad))
+    if on_card and codec.nvjpeg_decodes.launches < 2 * (iters + 1) + 1:
+        raise AssertionError("the JPEG decodes did not go through nvJPEG")
+    results["codec"] = out
+    return out
+
+
+
+def _backgrounds(rs: np.random.RandomState, views: int, width: int, height: int):
+    """One smooth colour field a camera (uint8 RGB): the shards' images compress
+    as camera frames do, not as noise."""
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    out = []
+    for _ in range(views):
+        img = np.empty((height, width, 3), np.float32)
+        for c in range(3):
+            fx, fy, ph = rs.uniform(0.004, 0.02, 3) * (1, 1, 300)
+            img[..., c] = 110 + 50 * np.sin(fx * x + fy * y + ph)
+        out.append(img)
+    return out
+
+
+def multiview_hand_sample(rs: np.random.RandomState, layer, backgrounds, width: int,
+                          height: int):
+    """One sample in the shard schema of ``tests/test_data.py:make_shard``: a posed
+    hand of the port's MANO model (its synthetic hand where MANO_RIGHT.pkl is
+    absent) 0.5 m in front of camera 0, the other cameras 0.4-0.6 m around it
+    looking at it; per view the camera-to-master extrinsic, intrinsics, camera-
+    frame joints and vertices, 2D joints, the box around them (centre, and twice
+    the larger span, as the adapters' ``bbox_center_scale``), and an image: the
+    camera's background with the projected vertices painted in."""
+    pose = (rs.randn(48) * 0.25).astype(np.float32)
+    shape = (rs.randn(10) * 0.5).astype(np.float32)
+    with torch.no_grad():
+        out = layer(torch.as_tensor(pose)[None], torch.as_tensor(shape)[None])
+    joints, verts = out.joints[0].numpy().astype(np.float64), out.verts[0].numpy().astype(
+        np.float64)
+    target = np.array([0.0, 0.0, 0.5]) + rs.uniform(-0.02, 0.02, 3)
+    shift = target - joints[9]
+    joints, verts = joints + shift, verts + shift
+    label = {k: [] for k in ("cam_serial", "cam_extr", "cam_intr", "joints_2d", "joints_3d",
+                             "verts_3d", "joints_vis", "bbox_center", "bbox_scale", "raw_size",
+                             "mano_pose", "mano_shape")}
+    images = []
+    for v, bg in enumerate(backgrounds):
+        if v == 0:
+            centre = np.zeros(3)
+        else:
+            d = rs.randn(3)
+            d[2] = -abs(d[2])
+            centre = target + rs.uniform(0.4, 0.6) * d / np.linalg.norm(d)
+        z = (target - centre) / np.linalg.norm(target - centre)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        c2m = np.eye(4)
+        c2m[:3, :3] = np.stack([x, np.cross(z, x), z], axis=1)
+        c2m[:3, 3] = centre
+        m2c = np.linalg.inv(c2m)
+        j_cam = joints @ m2c[:3, :3].T + m2c[:3, 3]
+        v_cam = verts @ m2c[:3, :3].T + m2c[:3, 3]
+        f = rs.uniform(550, 650)
+        intr = np.array([[f, 0, width / 2 + rs.uniform(-8, 8)],
+                         [0, f, height / 2 + rs.uniform(-8, 8)], [0, 0, 1]], np.float32)
+        proj = lambda p: (p @ intr.T.astype(np.float64))[:, :2] / p[:, 2:]
+        j2d, v2d = proj(j_cam), proj(v_cam)
+        img = bg.copy()
+        px = np.clip(np.rint(v2d).astype(int), 1, [width - 2, height - 2])
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                img[px[:, 1] + dy, px[:, 0] + dx] = (230, 190, 160)
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+        label["cam_serial"].append(f"cam{v}")
+        label["cam_extr"].append(c2m.astype(np.float32))
+        label["cam_intr"].append(intr)
+        label["joints_2d"].append(j2d.astype(np.float32))
+        label["joints_3d"].append(j_cam.astype(np.float32))
+        label["verts_3d"].append(v_cam.astype(np.float32))
+        label["joints_vis"].append(np.ones(21, np.float32))
+        label["bbox_center"].append(((j2d.max(0) + j2d.min(0)) / 2).astype(np.float32))
+        label["bbox_scale"].append(np.float32((j2d.max(0) - j2d.min(0)).max() * 2.0))
+        label["raw_size"].append(np.array([width, height]))
+        label["mano_pose"].append(pose)
+        label["mano_shape"].append(shape)
+    return images, label
+
+
+def _device_busy(prof):
+    """Device time of a profile: the union of the device events' intervals (ms),
+    their sum, and the sum by name."""
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    union, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return union / 1e3, sum(by_name.values()), by_name
+
+
+class _FirstBatch:
+    """An eval callback that keeps the first batch (tensors on the device) and the
+    loop's host predictions for it."""
+
+    def __init__(self):
+        self.batch = self.preds = None
+
+    def __call__(self, preds, batch, step_idx, **kwargs):
+        if self.batch is None:
+            self.batch = {k: v.clone() for k, v in batch.items() if isinstance(v, torch.Tensor)}
+            self.preds = {k: np.array(v) for k, v in preds.items()}
+
+    def on_finished(self):
+        pass
+
+    def reset(self):
+        pass
+
+
+def phase_data(results, device="cuda", dtype="bf16", model_overrides=None, image=None,
+               samples=64, per_shard=32, views=8, width=640, height=480, batch=8, workers=4,
+               process_workers=2):
+    """Phase 7 (b)-(c): the data layer and ``eval_single`` on ``device``. (b) the
+    port's ShardDumper writes ``samples`` multi-view samples (``views`` views of
+    ``width`` x ``height``, DexYCB's raw frame) as shards of ``per_shard``,
+    encoding on ``device``; (c) ``build_eval_cfg("DexYCB", "medium", ...)`` on
+    them, with a checkpoint of medium's init weights written by the Recorder, runs
+    through ``cli/eval.py:evaluate`` at the protocol's B8 and 2-8 random views, with
+    ``WORKERS`` 0 and ``workers`` (thread mode): samples/s, launches per batch
+    (K5 must run), every view decoded on ``device``, finite measures, peak GiB.
+    Beside them: decode and transform ms per view and collate / H2D ms per batch
+    (serial, host clock); the device's busy time and idle share (one profiled run
+    of the same eval loop, against the unprofiled run's seconds), the loop's first
+    batch against a direct model call, bit for bit; and ``process_workers`` spawn
+    workers over one shard, each with its own CUDA context, against the thread
+    pool. A rehearsal on the CPU passes small sizes and ``model_overrides``."""
+    import copy
+    import os
+    import random as pyrandom
+    import tempfile
+
+    from poem_v2_tpu_torch.cli import eval as eval_cli
+    from poem_v2_tpu_torch.cli.eval_single import DATASET_META, build_eval_cfg
+    from poem_v2_tpu_torch.cli.opt import parse_exp_args
+    from poem_v2_tpu_torch.cli.train import build_model
+    from poem_v2_tpu_torch.data import codec, collate_padded, create_dataset, native_ops
+    from poem_v2_tpu_torch.data.dumper import ShardDumper
+    from poem_v2_tpu_torch.data.wds import decode_sample, iter_tar_samples
+    from poem_v2_tpu_torch.mano.layer import ManoLayer
+    from poem_v2_tpu_torch.training.evaluator import Evaluator
+    from poem_v2_tpu_torch.training.prefetch import prefetch_to_device
+    from poem_v2_tpu_torch.training.trainer import Trainer
+    from poem_v2_tpu_torch.utils.config import get_config
+    from poem_v2_tpu_torch.utils.recorder import Recorder
+
+    on_card = device.startswith("cuda")
+    card = gpu_line()
+    log(f"phase 7: the data layer and eval_single on {device}: {samples} samples of {views} "
+        f"views of {width}x{height} written as shards of {per_shard}, the DexYCB protocol at "
+        f"B{batch}")
+    out = {}
+    view_max = DATASET_META["DexYCB"]["max_view"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # (b) the shards, encoded on the device
+            rs = np.random.RandomState(7)
+            layer = ManoLayer()
+            bgs = _backgrounds(rs, views, width, height)
+            t, gen = time.perf_counter(), 0.0
+            with ShardDumper(os.path.join(tmp, "tars"), "DexYCB_mv_test", per_shard,
+                             device=device) as dumper:
+                for i in range(samples):
+                    g = time.perf_counter()
+                    images, label = multiview_hand_sample(rs, layer, bgs, width, height)
+                    gen += time.perf_counter() - g
+                    dumper.add_sample(f"seq0/{i:06d}", images, label)
+            n_shards = -(-samples // per_shard)
+            shards = [os.path.join(tmp, "tars", f"DexYCB_mv_test-{k:06d}.tar")
+                      for k in range(n_shards)]
+            nbytes = sum(os.path.getsize(p) for p in shards)
+            encode_ms = (time.perf_counter() - t - gen) * 1e3 / (samples * views)
+            log(f"  (b) {n_shards} shards, {nbytes} bytes: {encode_ms:.3f} ms an image to encode "
+                f"on {device} and write (host clock; drawing the samples excluded)")
+            out["shards"] = dict(count=n_shards, bytes=nbytes, encode_ms_per_view=encode_ms)
+            urls = os.path.join(tmp, "tars", f"DexYCB_mv_test-{{000000..{n_shards - 1:06d}}}.tar")
+
+            cfg = build_eval_cfg("DexYCB", "medium", reload_path="", urls=urls,
+                                 epoch_size=samples, model_overrides=model_overrides)
+            if image is not None:
+                cfg.DATA_PRESET.IMAGE_SIZE = [image, image]
+            cfg.TRAIN.BATCH_SIZE = batch
+            argv = ["--view_max", str(view_max), "--device", device, "--dtype", dtype,
+                    "--eval_extra", "auc"]
+            args = parse_exp_args(["-c", "<dict>", "--exp_id", "default", *argv])
+            model, aux = build_model(get_config(cfg.to_dict(), arg=args), args)
+            trainer = Trainer(model, aux, train_cfg=cfg.TRAIN, loss_cfg=cfg.MODEL.LOSS)
+            ckpt = Recorder("default", root=os.path.join(tmp, "ckpt")).record_checkpoint(
+                trainer, 0)["path"]
+            del model, trainer
+            cfg.MODEL.PRETRAINED = ckpt
+
+            # serial costs of the pipeline's stages (host clock), the crop warp's
+            # library built first (g++ at first use) so that no stage times a build
+            native_ops.get_lib()
+            raws = [raw for p in shards for raw in iter_tar_samples(p)]
+            t = time.perf_counter()
+            decoded = [decode_sample(raw, device) for raw in raws]
+            decode_ms = (time.perf_counter() - t) * 1e3 / (samples * views)
+            ds = create_dataset(cfg.DATASET.TEST, data_preset=cfg.DATA_PRESET, is_train=False,
+                                device=device)
+            t = time.perf_counter()
+            processed = [ds.process_data_item(d, rng=pyrandom.Random(i))
+                         for i, d in enumerate(decoded)]
+            kept = sum(p["image"].shape[0] for p in processed)
+            transform_ms = (time.perf_counter() - t) * 1e3 / kept
+            collate_ms, h2d_ms = [], []
+            for k in range(0, samples - batch + 1, batch):
+                t = time.perf_counter()
+                b = collate_padded(processed[k:k + batch], view_max)
+                collate_ms.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                next(iter(prefetch_to_device([b], device, size=1)))
+                if on_card:
+                    torch.cuda.synchronize()
+                h2d_ms.append((time.perf_counter() - t) * 1e3)
+            out["stages"] = dict(decode_ms_per_view=decode_ms, transform_ms_per_view=transform_ms,
+                                 views_kept=kept, collate_ms_per_batch=float(np.median(collate_ms)),
+                                 h2d_ms_per_batch=float(np.median(h2d_ms)))
+            log(f"  stages, serial [{card}]: decode {decode_ms:.3f} ms a view ({samples * views} "
+                f"views), transform {transform_ms:.3f} ms a view kept ({kept}), collate "
+                f"{out['stages']['collate_ms_per_batch']:.2f} ms and H2D (pinned, synchronised) "
+                f"{out['stages']['h2d_ms_per_batch']:.2f} ms a B{batch} batch (median)")
+
+            # (c) eval_single's path through evaluate, WORKERS 0 and ``workers`` threads,
+            # after one batch that builds the kernels (if no phase has) and warms cuDNN
+            if on_card:
+                _lib.lib()
+            warm = cfg.clone()
+            warm.DATASET.TEST.EPOCH_SIZE = batch
+            _drive_cli(eval_cli.evaluate, warm.to_dict(), argv, {})
+            n_batches = samples // batch
+            for w in (0, workers):
+                run_cfg = cfg.clone()
+                run_cfg.DATASET.TEST.WORKERS = w
+                codec.nvjpeg_decodes.launches = 0
+                timing = {}
+                res, got, secs, peak = _drive_cli(eval_cli.evaluate, run_cfg.to_dict(), argv,
+                                                  timing)
+                decodes = codec.nvjpeg_decodes.launches
+                bad = {k: v for k, v in res.items() if not math.isfinite(v)}
+                if bad or timing["samples"] != n_batches * batch:
+                    raise AssertionError(f"eval WORKERS {w}: {timing['samples']} samples, "
+                                         f"measures not finite: {bad}")
+                want = {k: n_batches * LAUNCHES_PER_FORWARD[k] for k in KERNELS}
+                mixed = got["scrambled_merge_gather"]
+                if on_card and ({k: v for k, v in got.items() if k != "scrambled_merge_gather"}
+                                != {k: v for k, v in want.items()
+                                    if k != "scrambled_merge_gather"}
+                                or not 1 <= mixed <= n_batches):
+                    raise AssertionError(f"eval WORKERS {w}: launches {got}, want {want} and "
+                                         f"K5 1-{n_batches}")
+                if decodes != (samples * views if on_card else 0):
+                    raise AssertionError(f"eval WORKERS {w}: {decodes} nvJPEG decodes of "
+                                         f"{samples * views} views")
+                rate = timing["samples"] / timing["seconds"]
+                log(f"  (c) eval WORKERS {w} [{card}]: {timing['samples']} samples, {rate:.1f} "
+                    f"samples/s ({timing['seconds']:.2f} s in the loop, {secs:.2f} s with the "
+                    f"model's build); peak {peak:.2f} GiB; {decodes} nvJPEG decodes; launches a "
+                    f"batch: " + ", ".join(f"{k} {v / n_batches:g}" for k, v in got.items() if v)
+                    + "; " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()))
+                out[f"eval_workers_{w}"] = dict(
+                    samples=timing["samples"], loop_s=timing["seconds"], samples_per_s=rate,
+                    peak_gib=peak, nvjpeg_decodes=decodes, launches=got,
+                    launches_per_batch={k: v / n_batches for k, v in got.items()},
+                    results=res)
+
+            # the same loop once more, profiled: device busy, idle share; its first
+            # batch against a direct model call
+            run_cfg = cfg.clone()
+            run_cfg.DATASET.TEST.WORKERS = workers
+            run_cfg = get_config(run_cfg.to_dict(), arg=args)
+            model, aux = build_model(run_cfg, args)
+            evaluator = Evaluator(model, aux, center_idx=run_cfg.DATA_PRESET.CENTER_IDX)
+            ds = create_dataset(run_cfg.DATASET.TEST, data_preset=run_cfg.DATA_PRESET,
+                                is_train=False, device=device)
+            first = _FirstBatch()
+            from poem_v2_tpu_torch.data import batch_iterator
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+            with profile(activities=acts) as prof:
+                t = time.perf_counter()
+                evaluator.run(batch_iterator(ds, batch, view_max, samples), callback=first)
+                if on_card:
+                    torch.cuda.synchronize()
+                loop_ms = (time.perf_counter() - t) * 1e3
+            busy, summed, by_name = _device_busy(prof)
+            idle = 100 * (1 - busy / loop_ms) if busy > 0 else None
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            log(f"  profiled eval loop (WORKERS {workers}): device busy {busy:.1f} ms (union; "
+                f"{summed:.1f} ms summed over streams), {busy / n_batches:.2f} ms a batch; idle "
+                + (f"{idle:.1f}%" if idle is not None else "not measured")
+                + f" of this loop's {loop_ms:.1f} ms (profiler on; the unprofiled loop took "
+                f"{out[f'eval_workers_{workers}']['loop_s'] * 1e3:.1f} ms); largest: "
+                + "; ".join(f"{k[:50]} {v:.1f} ms" for k, v in top))
+            with torch.no_grad():
+                model.eval()
+                b = first.batch
+                direct = model(b["image"], b["view_mask"], b["cam_intr"], b["cam_extr"],
+                               b["master_joints_3d"])
+            same = np.array_equal(direct["pred_verts_3d"].float().cpu().numpy(),
+                                  first.preds["pred_verts_3d"])
+            log(f"  the loop's first batch equals a direct model call bit for bit: {same}")
+            if not same:
+                raise AssertionError("the eval loop's first predictions differ from a direct "
+                                     "model call on the same batch")
+            out["profile"] = dict(device_busy_ms=busy, device_summed_ms=summed,
+                                  busy_ms_per_batch=busy / n_batches, loop_ms=loop_ms,
+                                  idle_pct=idle,
+                                  first_batch_bit_identical=same)
+            del model, evaluator
+
+            # spawn workers over one shard: each opens its own CUDA context (nvJPEG)
+            pool_cfg = {**cfg.DATASET.TEST.to_dict(), "URLS": shards[0], "RANDOM_N_VIEWS": True,
+                        "WORKERS": process_workers}
+            streams = {}
+            for mode in ("thread", "process"):
+                free0 = torch.cuda.mem_get_info()[0] if on_card else 0
+                t = time.perf_counter()
+                it = iter(create_dataset({**pool_cfg, "WORKERS_MODE": mode},
+                                         data_preset=cfg.DATA_PRESET, is_train=False,
+                                         device=device))
+                got_samples = [next(it)]
+                first_s = time.perf_counter() - t
+                free1 = torch.cuda.mem_get_info()[0] if on_card else 0
+                got_samples += list(it)
+                streams[mode] = dict(samples=got_samples, first_s=first_s,
+                                     total_s=time.perf_counter() - t,
+                                     device_mib=(free0 - free1) / 2 ** 20)
+            same = len(streams["thread"]["samples"]) == len(streams["process"]["samples"]) and all(
+                np.array_equal(a["image"], b["image"])
+                and np.array_equal(a["target_cam_intr"], b["target_cam_intr"])
+                for a, b in zip(streams["thread"]["samples"], streams["process"]["samples"]))
+            for mode, st in streams.items():
+                log(f"  {process_workers} {mode} workers over one shard ({len(st['samples'])} "
+                    f"samples): first sample after {st['first_s']:.2f} s, all after "
+                    f"{st['total_s']:.2f} s; device memory taken meanwhile "
+                    f"{st['device_mib']:.0f} MiB")
+            if not same:
+                raise AssertionError("the process pool's samples differ from the thread pool's")
+            out["process_workers"] = {mode: {k: v for k, v in st.items() if k != "samples"}
+                                      for mode, st in streams.items()}
+        finally:
+            os.chdir(cwd)
+    out["card"] = card
+    results["data"] = out
+    return out
 
 
 if __name__ == "__main__":

@@ -45,7 +45,8 @@ def evaluate(cfg, args, timing: Optional[dict] = None) -> Dict[str, float]:
     if callback_kind == "draw":
         make_callback(callback_kind, "")  # raises before any work
     model, aux = build_model(cfg, args)
-    dataset = create_dataset(cfg.DATASET.TEST, data_preset=cfg.DATA_PRESET, is_train=False)
+    dataset = create_dataset(cfg.DATASET.TEST, data_preset=cfg.DATA_PRESET, is_train=False,
+                             device=args.device)
     batch_size = cfg.TRAIN.get("VAL_BATCH_SIZE", cfg.TRAIN.BATCH_SIZE)
     recorder = Recorder(f"{args.exp_id}_eval", cfg=cfg, eval_only=True)
     cb = make_callback(callback_kind, recorder.dump_path)

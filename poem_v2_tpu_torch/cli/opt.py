@@ -28,8 +28,8 @@ def parse_exp_args(argv=None):
     p.add_argument("-b", "--batch_size", type=int, default=None, help="batch size")
     p.add_argument("--val_batch_size", type=int, default=None)
     p.add_argument("-w", "--workers", type=int, default=4,
-                   help="accepted for the JAX CLI's command lines; the synthetic feed runs "
-                        "in the main process")
+                   help="accepted for the JAX CLI's command lines and without effect: a "
+                        "shard dataset's decode workers are its config's WORKERS")
     p.add_argument("--snapshot", type=int, default=1, help="epochs between ckpt snapshots")
     p.add_argument("--ckpt_freq", type=int, default=1,
                    help="epochs between rolling-checkpoint writes; the final epoch always "

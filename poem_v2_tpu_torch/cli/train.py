@@ -101,7 +101,8 @@ def train(cfg, args) -> Dict[str, Any]:
                       steps_per_epoch=steps_per_epoch)
     recorder = Recorder(args.exp_id, cfg=cfg)
     summary = SummaryWriter(log_dir=f"{recorder.dump_path}/runs")
-    dataset = create_dataset(cfg.DATASET.TRAIN, data_preset=cfg.DATA_PRESET, is_train=True)
+    dataset = create_dataset(cfg.DATASET.TRAIN, data_preset=cfg.DATA_PRESET, is_train=True,
+                             device=str(device))
     if world > 1:
         logger.info(f"data parallel over {world} ranks, {batch_size // world} samples a rank")
 
@@ -207,7 +208,7 @@ def train(cfg, args) -> Dict[str, Any]:
             if evaluator is None:
                 # built once: the model, its kernels and the data stream are reused
                 val_ds = create_dataset(cfg.DATASET.TEST, data_preset=cfg.DATA_PRESET,
-                                        is_train=False)
+                                        is_train=False, device=str(device))
                 evaluator = Evaluator(model, aux, center_idx=cfg.DATA_PRESET.CENTER_IDX)
             val_size = cfg.DATASET.TEST.get("EPOCH_SIZE", 1000)
             if val_feed is None and bool(cfg.DATASET.TEST.get("FIXED_SET", False)):

@@ -1,10 +1,12 @@
-"""Data: the synthetic multi-view dataset, padded collation and the dataset factory
-(counterpart of ``poem_v2_tpu/data/__init__.py``)."""
+"""Data: the webdataset shards, the synthetic multi-view dataset, padded collation
+and the dataset factory (counterpart of ``poem_v2_tpu/data/__init__.py``)."""
 
 import itertools
 
 from .collate import batch_iterator, collate_padded, pad_views
 from .synthetic import SyntheticMultiviewDataset
+from .transforms import SimpleTransform3DMultiView
+from .wds import MixWebDataset, MultiviewWebDataset, expand_urls
 
 
 class SyntheticSampleStream:
@@ -49,26 +51,49 @@ class SyntheticSampleStream:
 
 
 def create_dataset(cfg, data_preset=None, is_train: bool = True, **kwargs):
-    """Dataset factory: ``TYPE: Synthetic``. The other types of the JAX factory
-    (webdataset shards and the per-dataset adapters) raise until the port has its
-    data layer (ROADMAP queue 1, item 5)."""
-    if cfg["TYPE"] != "Synthetic":
-        raise NotImplementedError(
-            f"dataset TYPE {cfg['TYPE']!r}: the port reads only TYPE Synthetic; the webdataset "
-            "and adapter datasets wait for its data layer (ROADMAP queue 1, item 5)")
-    if cfg.get("RENDER", False):
-        raise NotImplementedError(
-            "the synthetic dataset's RENDER option draws skeletons through the viztools, which "
-            "the port has not yet (ROADMAP queue 1, item 8)")
-    return SyntheticSampleStream(
-        view_max=cfg.get("VIEW_MAX", 8),
-        image_size=cfg.get("IMAGE_SIZE", 256),
-        epoch_size=cfg.get("EPOCH_SIZE", 0),
-        seed=cfg.get("SEED", 0),
-        fixed_set=cfg.get("FIXED_SET", False),
-        view_range=cfg.get("VIEW_RANGE", None),
-    )
+    """Dataset factory (reference lib/datasets/__init__.py:14-35).
+
+    ``MixWebDataset`` configs carry a ``DATASET_LIST`` of per-dataset blocks with
+    ``MIX_RATIO``; ``MultiviewWebDataset`` / ``WebDataset`` build one stream of
+    shards (``kwargs``, e.g. ``device``, go to each); ``Synthetic`` the generator;
+    any other ``TYPE`` a registered adapter (``data/adapters``), which decodes its
+    raw frames on ``kwargs["device"]``."""
+    kind = cfg["TYPE"]
+    if kind == "MixWebDataset":
+        datasets, ratios = [], []
+        for name in cfg["DATASET_LIST"]:
+            sub = cfg[name]
+            datasets.append(MultiviewWebDataset(sub, data_preset=data_preset, is_train=is_train,
+                                                **kwargs))
+            ratios.append(sub["MIX_RATIO"])
+        return MixWebDataset(datasets, ratios)
+    if kind in ("MultiviewWebDataset", "WebDataset"):
+        return MultiviewWebDataset(cfg, data_preset=data_preset, is_train=is_train, **kwargs)
+    if kind == "Synthetic":
+        if cfg.get("RENDER", False):
+            raise NotImplementedError(
+                "the synthetic dataset's RENDER option draws skeletons through the viztools, "
+                "which the port has not yet (ROADMAP queue 1, item 8)")
+        return SyntheticSampleStream(
+            view_max=cfg.get("VIEW_MAX", 8),
+            image_size=cfg.get("IMAGE_SIZE", 256),
+            epoch_size=cfg.get("EPOCH_SIZE", 0),
+            seed=cfg.get("SEED", 0),
+            fixed_set=cfg.get("FIXED_SET", False),
+            view_range=cfg.get("VIEW_RANGE", None),
+        )
+    # the map-style adapters (DexYCB / HO3D / OakInk / InterHand / Arctic /
+    # FreiHAND and their multi-view variants) register themselves on import
+    from . import adapters  # noqa: F401
+    from ..utils.registry import DATASET
+
+    if kind in DATASET:
+        ds = DATASET.get(kind)(cfg)
+        ds.device = str(kwargs.get("device", "cpu"))
+        return ds
+    raise ValueError(f"unknown dataset TYPE {kind!r}")
 
 
-__all__ = ["SyntheticMultiviewDataset", "SyntheticSampleStream", "batch_iterator",
-           "collate_padded", "create_dataset", "pad_views"]
+__all__ = ["MixWebDataset", "MultiviewWebDataset", "SimpleTransform3DMultiView",
+           "SyntheticMultiviewDataset", "SyntheticSampleStream", "batch_iterator",
+           "collate_padded", "create_dataset", "expand_urls", "pad_views"]

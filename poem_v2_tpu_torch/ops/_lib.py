@@ -2,7 +2,9 @@
 
 The kernels have a plain C interface and are compiled with ``nvcc`` (one
 process per source, side by side) into one shared library, loaded with
-``ctypes``. The build runs at first use,
+``ctypes``; the nvJPEG shim of the data layer (``csrc/jpeg.cpp``) is a library
+of its own (:func:`jpeg`), so that the kernels do not depend on libnvjpeg. The
+build runs at first use,
 from the sources in the checkout, into ``poem_v2_tpu_torch/_build/``
 (git-ignored); the library's file name carries a hash of the sources, so
 an edited source is rebuilt and a stale library is never loaded.
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +35,12 @@ DTYPE_F32, DTYPE_BF16 = 0, 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_S = ctypes.c_size_t
+_JPEG_SIGNATURES = {
+    "poem_jpeg_info": [_P, _S, _P, _P],
+    "poem_jpeg_decode": [_P, _S, _I, _I, _I, _P],
+    "poem_jpeg_encode": [_P, _I, _I, _I, _I, _P, _S, _P],
+}
 _SIGNATURES = {
     "poem_knn_select": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "poem_knn_select_bucketed": [_P] * 8 + [_I] * 8 + [_P],
@@ -50,11 +59,11 @@ _SIGNATURES = {
 class KernelLibrary:
     """The loaded shared library plus the compiler's report of its build."""
 
-    def __init__(self, path: str, ptxas_log: str):
+    def __init__(self, path: str, ptxas_log: str, signatures=None):
         self.path = path
         self.ptxas_log = ptxas_log
         self._dll = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in (signatures or _SIGNATURES).items():
             fn = getattr(self._dll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -64,6 +73,10 @@ class KernelLibrary:
         err = getattr(self._dll, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+    def status(self, name: str, *args) -> int:
+        """Run one C entry point; its return code (0 on success)."""
+        return getattr(self._dll, name)(*args)
 
 
 def _sources():
@@ -124,7 +137,45 @@ def build() -> KernelLibrary:
     return KernelLibrary(so, log)
 
 
+def cuda_home() -> str:
+    """The CUDA toolkit's root: ``$CUDA_HOME``, else the directory above nvcc's."""
+    return os.environ.get("CUDA_HOME") or os.path.dirname(os.path.dirname(
+        os.path.realpath(_nvcc())))
+
+
+def build_jpeg() -> KernelLibrary:
+    """Compile ``csrc/jpeg.cpp`` into ``_build/libpoem_jpeg_<hash>.so`` if absent,
+    linked against the toolkit's libnvjpeg (found again at run time through the
+    library's rpath). Raises, naming what is missing, where the toolkit has no
+    nvJPEG."""
+    src = os.path.join(CSRC, "jpeg.cpp")
+    home = cuda_home()
+    inc, libdir = os.path.join(home, "include"), os.path.join(home, "lib64")
+    missing = [p for p in (os.path.join(inc, "nvjpeg.h"), os.path.join(libdir, "libnvjpeg.so"))
+               if not os.path.exists(p)]
+    if missing:
+        raise RuntimeError(f"JPEG on the card needs nvJPEG from the CUDA toolkit; {home} lacks "
+                           + ", ".join(missing))
+    flags = ["-std=c++17", "-O2", "-Xcompiler", "-fPIC", "-shared", "-I", inc, "-L", libdir,
+             "-lnvjpeg", "-Xlinker", f"-rpath,{libdir}"]
+    h = hashlib.sha256(open(src, "rb").read())
+    h.update(" ".join(flags).encode())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"libpoem_jpeg_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            out = os.path.join(tmp, "lib.so")
+            proc = subprocess.run([_nvcc(), *flags, "-o", out, src], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+            os.replace(out, so)
+    return KernelLibrary(so, "", _JPEG_SIGNATURES)
+
+
 _LIB: Optional[KernelLibrary] = None
+_JPEG: Optional[KernelLibrary] = None
+_JPEG_LOCK = threading.Lock()  # decode threads reach their first call together
 
 
 def lib() -> KernelLibrary:
@@ -133,6 +184,15 @@ def lib() -> KernelLibrary:
     if _LIB is None:
         _LIB = build()
     return _LIB
+
+
+def jpeg() -> KernelLibrary:
+    """The process's nvJPEG shim, built on first use."""
+    global _JPEG
+    with _JPEG_LOCK:
+        if _JPEG is None:
+            _JPEG = build_jpeg()
+    return _JPEG
 
 
 def stream_ptr(t) -> int:

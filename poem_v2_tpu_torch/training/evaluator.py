@@ -136,42 +136,49 @@ class Evaluator:
                                                             keys=EVAL_KEYS)):
             if max_steps and step_idx >= max_steps:
                 break
-            pred_j, pred_v, pred_ref = self.predict(batch)
-            self.samples += pred_j.shape[0]
-            gt_j = batch["master_joints_3d"].float()
-            gt_v = batch["master_verts_3d"].float()
-            if self.pred_joints_from_mesh:
-                # joints re-derived from the meshes, as the reference does
-                gt_j_eval = mano_to_openpose(self.j_regressor, gt_v)
-                pred_j_eval = mano_to_openpose(self.j_regressor, pred_v)
-            else:
-                gt_j_eval, pred_j_eval = gt_j, pred_j
-            centre_p = pred_j_eval[:, self.center_idx][:, None]
-            centre_g = gt_j_eval[:, self.center_idx][:, None]
-            pred_j_rel, pred_v_rel = pred_j_eval - centre_p, pred_v - centre_p
-            gt_j_rel, gt_v_rel = gt_j_eval - centre_g, gt_v - centre_g
-
-            host = {k: t.cpu().numpy() for k, t in dict(
-                pred_ref=pred_ref, gt_j=gt_j, pred_j_eval=pred_j_eval, gt_j_eval=gt_j_eval,
-                pred_v=pred_v, gt_v=gt_v, pred_j_rel=pred_j_rel, gt_j_rel=gt_j_rel,
-                pred_v_rel=pred_v_rel, gt_v_rel=gt_v_rel).items()}
-            self.MPTPE.feed(host["pred_ref"], host["gt_j"])
-            self.MPJPE.feed(host["pred_j_eval"], host["gt_j_eval"])
-            self.MPJPE_REF.feed(host["pred_ref"], host["gt_j_eval"])
-            self.MPVPE.feed(host["pred_v"], host["gt_v"])
-            self.MPJPE_REL.feed(host["pred_j_rel"], host["gt_j_rel"])
-            self.MPVPE_REL.feed(host["pred_v_rel"], host["gt_v_rel"])
-            self.PA.feed(pred_j_eval, gt_j_eval, pred_v, gt_v)
-
-            cb_batch = dict(batch)  # tensors on the device; the root-relative targets on the host
-            cb_batch["master_joints_3d_rel"] = host["gt_j_rel"]
-            cb_batch["master_verts_3d_rel"] = host["gt_v_rel"]
-            cb_preds = {"pred_joints_3d": host["pred_j_eval"], "pred_verts_3d": host["pred_v"],
-                        "pred_joints_3d_rel": host["pred_j_rel"],
-                        "pred_verts_3d_rel": host["pred_v_rel"]}
-            callback(cb_preds, cb_batch, step_idx)
-
+            self.feed(batch, step_idx, callback)
         callback.on_finished()
+        return self.measures()
+
+    def feed(self, batch: Mapping[str, torch.Tensor], step_idx: int, callback: IdleCallback):
+        """Add one batch, its ``EVAL_KEYS`` already on the device, to the meters."""
+        pred_j, pred_v, pred_ref = self.predict(batch)
+        self.samples += pred_j.shape[0]
+        gt_j = batch["master_joints_3d"].float()
+        gt_v = batch["master_verts_3d"].float()
+        if self.pred_joints_from_mesh:
+            # joints re-derived from the meshes, as the reference does
+            gt_j_eval = mano_to_openpose(self.j_regressor, gt_v)
+            pred_j_eval = mano_to_openpose(self.j_regressor, pred_v)
+        else:
+            gt_j_eval, pred_j_eval = gt_j, pred_j
+        centre_p = pred_j_eval[:, self.center_idx][:, None]
+        centre_g = gt_j_eval[:, self.center_idx][:, None]
+        pred_j_rel, pred_v_rel = pred_j_eval - centre_p, pred_v - centre_p
+        gt_j_rel, gt_v_rel = gt_j_eval - centre_g, gt_v - centre_g
+
+        host = {k: t.cpu().numpy() for k, t in dict(
+            pred_ref=pred_ref, gt_j=gt_j, pred_j_eval=pred_j_eval, gt_j_eval=gt_j_eval,
+            pred_v=pred_v, gt_v=gt_v, pred_j_rel=pred_j_rel, gt_j_rel=gt_j_rel,
+            pred_v_rel=pred_v_rel, gt_v_rel=gt_v_rel).items()}
+        self.MPTPE.feed(host["pred_ref"], host["gt_j"])
+        self.MPJPE.feed(host["pred_j_eval"], host["gt_j_eval"])
+        self.MPJPE_REF.feed(host["pred_ref"], host["gt_j_eval"])
+        self.MPVPE.feed(host["pred_v"], host["gt_v"])
+        self.MPJPE_REL.feed(host["pred_j_rel"], host["gt_j_rel"])
+        self.MPVPE_REL.feed(host["pred_v_rel"], host["gt_v_rel"])
+        self.PA.feed(pred_j_eval, gt_j_eval, pred_v, gt_v)
+
+        cb_batch = dict(batch)  # tensors on the device; the root-relative targets on the host
+        cb_batch["master_joints_3d_rel"] = host["gt_j_rel"]
+        cb_batch["master_verts_3d_rel"] = host["gt_v_rel"]
+        cb_preds = {"pred_joints_3d": host["pred_j_eval"], "pred_verts_3d": host["pred_v"],
+                    "pred_joints_3d_rel": host["pred_j_rel"],
+                    "pred_verts_3d_rel": host["pred_v_rel"]}
+        callback(cb_preds, cb_batch, step_idx)
+
+    def measures(self) -> Dict[str, float]:
+        """The meters' measures so far."""
         results = {}
         for m in self._meters():
             results.update(m.get_measures())

@@ -336,3 +336,33 @@ def test_phase_6_rehearsal(on_cpu, one_thread, monkeypatch):
                                              "head.transformer.block_1"}
     assert results["reference_checkpoint"]["converted"] > 1000
     json.dumps(results)
+
+
+def test_phase_7_rehearsal(on_cpu, one_thread):
+    """Phase 7 on the CPU at a tiny size: the codec check (OpenCV's decode on both
+    sides), shards of the MANO hand written by the port's dumper, evaluate on
+    build_eval_cfg's DexYCB protocol with WORKERS 0 and 2 threads, the profiled
+    loop's first batch against a direct model call, and a spawn pool against the
+    thread pool; no kernel and no nvJPEG decode runs on the CPU."""
+    from test_eval_protocols import TINY_MODEL
+
+    results = {}
+    codec = chip_smoke.phase_codec(results, device="cpu", iters=1)
+    assert codec["q95_640x480"]["max_abs"] == 0 and codec["q95_224x224"]["share"] == 0.0
+    for name in ("q95_640x480", "q95_224x224"):
+        assert codec[name]["planted"]["channels_swapped"]["caught"]
+        assert codec[name]["planted"]["chroma_nearest"]["mean_abs"] > 0
+    assert set(codec["png_640x480"]) == {"sub", "paeth"}
+    data = chip_smoke.phase_data(results, device="cpu", dtype="fp32", model_overrides=TINY_MODEL,
+                                 image=64, samples=6, per_shard=4, views=3, width=96, height=72,
+                                 batch=2, workers=2, process_workers=2)
+    assert data["shards"]["count"] == 2
+    for w in (0, 2):
+        run = data[f"eval_workers_{w}"]
+        assert run["samples"] == 6 and run["nvjpeg_decodes"] == 0
+        assert set(run["launches"]) == set(chip_smoke.KERNELS)
+        assert all(v == 0 for v in run["launches"].values())
+    assert data["profile"]["first_batch_bit_identical"]
+    assert set(data["process_workers"]) == {"thread", "process"}
+    assert data["stages"]["views_kept"] >= 6 * 2  # the protocol keeps 2 to 3 of 3 views
+    json.dumps({"data": {"codec": codec, **data}})

@@ -73,3 +73,45 @@ def test_cpu_forward_without_jax_or_yaml():
                           capture_output=True, text=True, env=env, timeout=300,
                           cwd=os.path.dirname(PKG))
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+_NO_CV2_SCRIPT = r"""
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %(blocked)r:
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import poem_v2_tpu_torch
+for m in pkgutil.walk_packages(poem_v2_tpu_torch.__path__, "poem_v2_tpu_torch."):
+    importlib.import_module(m.name)
+from poem_v2_tpu_torch.data import codec
+
+fixtures = "tests/torch_fixtures/codec/"
+img = codec.decode_image(open(fixtures + "source.png", "rb").read())
+assert (img == np.load(fixtures + "decodes.npz")["source"]).all()
+try:
+    codec.decode_image(open(fixtures + "q95_224x224.jpg", "rb").read(), "cpu")
+except RuntimeError as e:
+    assert "OpenCV" in str(e), e
+else:
+    raise AssertionError("JPEG decode on the CPU without OpenCV did not raise")
+leaked = [k for k in sys.modules if k.split(".")[0] in %(blocked)r]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_every_module_imports_without_cv2_pil_or_yaml():
+    """As on the card's machine: no OpenCV, PIL or PyYAML. Every module of the port
+    imports, a PNG decodes, and a JPEG on the CPU raises, naming OpenCV."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    blocked = FORBIDDEN + ("cv2", "PIL")
+    proc = subprocess.run([sys.executable, "-c", _NO_CV2_SCRIPT % {"blocked": blocked}],
+                          capture_output=True, text=True, env=env, timeout=300,
+                          cwd=os.path.dirname(PKG))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
