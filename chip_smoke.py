@@ -144,14 +144,28 @@ non-zero:
    profiled (device busy, idle share of that loop's own time) with its first
    batch equal to a direct model call bit for bit; 2 spawn workers (each its
    own CUDA context) against 2 threads over one shard.
+8. the drawing path (``viztools``, the synthetic ``RENDER``, ``DrawingHandCallback``,
+   ``cli/demo.py``, ``Predictor.warmup``): ``synthetic_overfit_gate`` as shipped
+   (rendered views, B8, 8 of 8 views at 128 px, ResNet-18 GN, 2 blocks of width
+   64) through ``cli/train.py:train`` for 16 steps and one validation, ms a step
+   (CUDA events), one more step profiled (device busy, idle share), the host
+   seconds that drew the rendered fixed set apart from the epochs', launches a
+   step; ``cli/eval.py:evaluate`` with ``--eval_extra draw`` on 8 samples, every
+   PNG decoded back by ``csrc/png.cc`` against the array written;
+   ``synthetic_overfit_render`` and ``synthetic_overfit_gate_mano`` for 2 steps
+   each and ``synthetic_overfit_gate_mano_800`` resumed from the latter's
+   checkpoint; ``cli/demo.py`` on medium (random weights), B2 of 4 views, bf16
+   (its warmup, the request's latency, its PNGs read back, 2 forwards' launches),
+   and ``Predictor.warmup`` of buckets 1, 2, 4 and 8. K1, K2, K3, K3b, K4, K6,
+   K6b and K7 must launch in this phase.
 
-The line before the kernels line is a JSON object ``{"data": ...}`` with phase
-7's readings. The second-to-last line is a JSON object with one entry per kernel (``ms``
+The lines before the kernels line are JSON objects ``{"data": ...}`` with phase
+7's readings and ``{"drawing": ...}`` with phase 8's. The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
 K9's also their selections' times from phase 1e under ``selection``; K3's and
 K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
 on phase 5's paths under ``front_door_launches``, on phase 7's under
-``data_launches``); the last
+``data_launches``, on phase 8's under ``viz_launches``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
 without a CUDA device it fails before printing any result.
 """
@@ -1500,6 +1514,7 @@ def main() -> int:
     phase_reference_checkpoint(results)
     codec = phase_codec(results)
     data = phase_data(results)
+    drawing = phase_drawing(results)
     path_launches = {
         **{k: launches[k] for k, n in LAUNCHES_PER_FORWARD.items() if n},
         "scrambled_merge_gather": tier_launches["scrambled_merge_gather"],
@@ -1572,6 +1587,8 @@ def main() -> int:
         e["no_flash_launches"] = no_flash_launches[e["name"]]
         # phase 7's eval_single path on shards, WORKERS 4
         e["data_launches"] = data["eval_workers_4"]["launches"][e["name"]]
+        # phase 8's drawing path: the RENDER configs' runs, the draw eval and the demo
+        e["viz_launches"] = drawing["launches"][e["name"]]
     # every kernel the synthetic paths run launched there
     quiet = [k for k, n in LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items()
              if n and not front["synthetic_train"]["launches"][k]]
@@ -1585,6 +1602,7 @@ def main() -> int:
         raise AssertionError(f"kernels that no path launched: {missing}")
     log(gpu_line())
     print(json.dumps({"data": {"codec": codec, **data}}), flush=True)
+    print(json.dumps({"drawing": drawing}, default=float), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3484,6 +3502,266 @@ def phase_data(results, device="cuda", dtype="bf16", model_overrides=None, image
     results["data"] = out
     return out
 
+
+
+# phase 8: the drawing path. Every kernel a synthetic model's train step or eval
+# forward runs, and the medium forward's, must launch in this phase
+VIZ_PATH_KERNELS = ("fused_knn_vector_attention", "fused_anchor_vector_attention",
+                    "dense_cross_attention", "dense_cross_attention_bwd",
+                    "grid_sample_points_fused", "knn_vector_attention_trainable",
+                    "knn_vector_attention_trainable_bwd", "scatter_add_rows")
+
+
+def _render_cfg(name, epochs, train_size=None, test_size=None, image=None, views=None):
+    """The shipped config ``name`` (configs/<name>.yaml, as data) for ``epochs``
+    epochs; depth cut by the train and test sets' sizes; a rehearsal on the CPU
+    also cuts the image and the views."""
+    import copy
+
+    from poem_v2_tpu_torch.configs import SYNTHETIC
+
+    cfg = copy.deepcopy(SYNTHETIC[name])
+    cfg["TRAIN"]["EPOCH"] = epochs
+    for part, size in (("TRAIN", train_size), ("TEST", test_size)):
+        data = cfg["DATASET"][part]
+        if size:
+            data["EPOCH_SIZE"] = size
+        if image:
+            data["IMAGE_SIZE"] = image
+        if views:
+            data.update(VIEW_MAX=views, VIEW_RANGE=[views, views])
+    if image:
+        cfg["DATA_PRESET"]["IMAGE_SIZE"] = [image, image]
+    return cfg
+
+
+class _PngLog:
+    """Keeps a copy of every array ``raster.write_png`` writes while it is on."""
+
+    def __init__(self):
+        self.written = {}
+
+    def __enter__(self):
+        from poem_v2_tpu_torch.viztools import raster
+
+        self._raster, self._real = raster, raster.write_png
+
+        def write(path, img):
+            self.written[path] = np.array(img)
+            self._real(path, img)
+
+        raster.write_png = write
+        return self
+
+    def __exit__(self, *exc):
+        self._raster.write_png = self._real
+
+
+def _check_pngs(name, written, card):
+    """Every PNG written, decoded back by the port's decoder (``csrc/png.cc``),
+    equals the array written."""
+    from poem_v2_tpu_torch.data.codec import decode_png
+
+    t = time.perf_counter()
+    for path, img in written.items():
+        got = decode_png(open(path, "rb").read())
+        want = img if img.ndim == 3 else np.repeat(img[..., None], 3, -1)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: {path} decodes to other pixels than were written")
+    log(f"  {name} [{card}]: {len(written)} PNGs written, decoded back by csrc/png.cc equal to "
+        f"the arrays written ({time.perf_counter() - t:.2f} s)")
+    return len(written)
+
+
+def phase_drawing(results, device="cuda", dtype="bf16", gate_epochs=2, gate_size=None,
+                  batch=None, short_size=16, draw_size=8, image=None, views=None,
+                  medium_model=None, medium_image=256, demo_views=4, demo_batch=2,
+                  buckets=(1, 2, 4, 8)):
+    """Phase 8: the drawing path through the front doors, in a temporary directory.
+    (a) ``synthetic_overfit_gate`` (RENDER, ResNet-18 GN, 2 blocks, width 64, 8 of 8
+    views at 128 px, B8) through ``cli/train.py:train`` for ``gate_epochs`` epochs
+    of its 64-sample fixed set with one validation, then ``cli/eval.py:evaluate``
+    with ``--eval_extra draw`` on ``draw_size`` test samples; then
+    ``synthetic_overfit_render``, ``synthetic_overfit_gate_mano`` and, resumed from
+    the latter's checkpoint, ``synthetic_overfit_gate_mano_800``, each one epoch of
+    ``short_size`` samples. (b) ``cli/demo.py`` on medium (random weights from
+    ``init_parameters``), B``demo_batch`` of ``demo_views`` views, bf16; then
+    ``Predictor.warmup`` of each of ``buckets`` on a fresh predictor. Readings: ms a
+    step (CUDA events), the device's busy share of a step, the host seconds that
+    drew the fixed set (the rendering epoch) apart from the epochs' own, launches
+    per step and per forward, warmup and request times, every PNG decoded back
+    and compared. A rehearsal on the CPU passes small sizes (``gate_size`` samples
+    in the gate's sets, ``batch``, ``image``, ``views``) and ``medium_model``."""
+    import copy
+    import os
+    import tempfile
+
+    from poem_v2_tpu_torch.cli import demo as demo_cli, eval as eval_cli, train as train_cli
+    from poem_v2_tpu_torch.configs import MEDIUM
+    from poem_v2_tpu_torch.data import batch_iterator, create_dataset
+    from poem_v2_tpu_torch.serving.predictor import Predictor
+    from poem_v2_tpu_torch.utils.config import dump_yaml
+
+    on_card = device.startswith("cuda")
+    card = gpu_line()
+    log("phase 8: the drawing path: the RENDER configs through the train CLI, --eval_extra "
+        "draw, and cli/demo.py on medium")
+    out, viz = {}, {k: 0 for k in KERNELS}
+
+    def add(got):
+        for k, n in got.items():
+            viz[k] += n
+
+    cwd = os.getcwd()
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # (a) the gate at full width: its epochs, one validation at the end
+            gate = _render_cfg("synthetic_overfit_gate", gate_epochs, gate_size, gate_size,
+                               image=image, views=views)
+            V = gate["DATASET"]["TRAIN"]["VIEW_MAX"]
+            B = batch or gate["TRAIN"]["BATCH_SIZE"]
+            argv = ["--view_max", str(V), "-b", str(B), "--device", device, "--dtype", dtype,
+                    "--eval_freq", str(gate_epochs)]
+            run, got, secs, peak = _drive_cli(train_cli.train, gate, argv)
+            steps = len(run["losses"])
+            n_val = gate["DATASET"]["TEST"]["EPOCH_SIZE"] // B
+            _check_launches("gate train CLI", got, _expected(
+                steps, n_val, 0, LAUNCHES_PER_SYNTHETIC_TRAIN_STEP,
+                LAUNCHES_PER_SYNTHETIC_FORWARD))
+            _check_measures("gate validation", run["val"][0])
+            add(got)
+            summary = _train_summary("synthetic_overfit_gate train", run, secs, peak, B, card)
+            rest = run["epoch_s"]
+            log(f"  gate [{card}]: drawing the fixed set ({gate['DATASET']['TRAIN']['EPOCH_SIZE']}"
+                f" samples of {V} rendered views) took {run['feed_s']:.2f} s on the host before "
+                f"the first step; the epochs then took " + ", ".join(f"{x:.2f}" for x in rest)
+                + f" s; launches a step " + ", ".join(
+                    f"{k} {n}" for k, n in LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items() if n))
+            out["gate_train"] = dict(summary, launches=got, feed_s=run["feed_s"], epoch_s=rest,
+                                     launches_per_step={k: n for k, n in
+                                                        LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items()
+                                                        if n})
+            if on_card:  # the device's busy share: one more step, profiled
+                data = dict(gate["DATASET"]["TRAIN"], EPOCH_SIZE=B)
+                sample = next(iter(batch_iterator(create_dataset(data), B, V, B)))
+                log(f"  the gate step profiled on {card}:")
+                out["gate_train"]["profile"] = profile_train_step(
+                    run["trainer"], run["trainer"].to_device(sample), summary["median_step_ms"])
+
+            # the eval CLI with --eval_extra draw on the trained checkpoint
+            drawn = copy.deepcopy(gate)
+            drawn["DATASET"]["TEST"]["EPOCH_SIZE"] = draw_size
+            timing = {}
+            with _PngLog() as pngs:
+                res, got, secs, peak = _drive_cli(
+                    eval_cli.evaluate, drawn, argv + ["--eval_extra", "draw", "--reload",
+                                                      run["checkpoint"]["path"]], timing)
+            _check_launches("gate eval CLI (draw)", got, _expected(
+                0, draw_size // B, 0, LAUNCHES_PER_SYNTHETIC_TRAIN_STEP,
+                LAUNCHES_PER_SYNTHETIC_FORWARD))
+            _check_measures("gate eval (draw)", res)
+            add(got)
+            grids = [p for p in pngs.written if os.path.basename(p).startswith("step00000_s")]
+            if len(grids) != draw_size or len(pngs.written) != draw_size * (1 + 2 * V):
+                raise AssertionError(f"--eval_extra draw wrote {len(pngs.written)} PNGs "
+                                     f"({len(grids)} grids) for {draw_size} samples of {V} views")
+            n_png = _check_pngs("gate --eval_extra draw", pngs.written, card)
+            log(f"  gate eval CLI with --eval_extra draw [{card}]: {timing['samples']} samples "
+                f"in {timing['seconds']:.2f} s (drawing {n_png} PNGs included), "
+                f"{secs:.2f} s with the model's build; mpjpe {res['mpjpe']:.4f} m")
+            out["gate_draw"] = dict(results=res, seconds=timing["seconds"], pngs=n_png,
+                                    launches=got)
+
+            # the other RENDER configs, an epoch of short_size samples each; the
+            # 800-epoch parametric gate by --resume from the 480-epoch one
+            for name, key in (("synthetic_overfit_render", "render"),
+                              ("synthetic_overfit_gate_mano", "gate_mano")):
+                cfg = _render_cfg(name, 1, short_size, short_size, image=image, views=views)
+                v = cfg["DATASET"]["TRAIN"]["VIEW_MAX"]
+                args_n = ["--view_max", str(v), "-b", str(B), "--device", device, "--dtype",
+                          dtype, "--eval_freq", "1000"]
+                run_n, got, secs, peak = _drive_cli(train_cli.train, cfg, args_n)
+                _check_launches(f"{name} train CLI", got, _expected(
+                    short_size // B, 0, 0, LAUNCHES_PER_SYNTHETIC_TRAIN_STEP,
+                    LAUNCHES_PER_SYNTHETIC_FORWARD))
+                add(got)
+                out[key] = dict(_train_summary(f"{name} train", run_n, secs, peak, B, card,
+                                               warmup=0), launches=got, feed_s=run_n["feed_s"])
+            ext = _render_cfg("synthetic_overfit_gate_mano_800", 2, short_size, short_size,
+                              image=image, views=views)
+            run_e, got, secs, peak = _drive_cli(
+                train_cli.train, ext, args_n + ["--resume", run_n["checkpoint"]["path"]])
+            if run_e["start_epoch"] != 1 or run_e["trainer"].global_step != 2 * (short_size // B):
+                raise AssertionError(f"the 800-epoch gate resumed at epoch {run_e['start_epoch']}"
+                                     f", step {run_e['trainer'].global_step}")
+            _check_launches("synthetic_overfit_gate_mano_800 (resumed) train CLI", got, _expected(
+                short_size // B, 0, 0, LAUNCHES_PER_SYNTHETIC_TRAIN_STEP,
+                LAUNCHES_PER_SYNTHETIC_FORWARD))
+            add(got)
+            out["gate_mano_800"] = dict(_train_summary(
+                "synthetic_overfit_gate_mano_800 (resumed at epoch 1) train", run_e, secs, peak,
+                B, card, warmup=0), launches=got)
+
+            # (b) the demo on medium: its config without a test set, so that the
+            # request comes from the synthetic generator at the tier's 256 px
+            medium = {"MODEL": copy.deepcopy(medium_model or MEDIUM["MODEL"]),
+                      "DATA_PRESET": dict(MEDIUM["DATA_PRESET"],
+                                          IMAGE_SIZE=[medium_image, medium_image])}
+            path = os.path.join(tmp, "demo_medium.yaml")
+            with open(path, "w") as f:
+                f.write(dump_yaml(medium))
+            if on_card:
+                torch.cuda.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            with _PngLog() as pngs:
+                demo = demo_cli.main(["-c", path, "--out", os.path.join(tmp, "demo"), "--batch",
+                                      str(demo_batch), "--views", str(demo_views), "--dtype",
+                                      dtype, "--device", device])
+            secs = time.perf_counter() - t
+            got = read_launches()
+            # the warmup's forward and the request's, all views valid (no K5)
+            _check_launches("demo (medium)", got, {k: 2 * n for k, n in
+                                                   LAUNCHES_PER_FORWARD.items()})
+            add(got)
+            for key in ("joints_3d", "verts_3d", "joints_uv"):
+                if not np.isfinite(demo[key]).all():
+                    raise AssertionError(f"demo: {key} not finite")
+            if {p for p, _ in demo["written"]} != set(pngs.written) or \
+                    len(pngs.written) != demo_batch:
+                raise AssertionError(f"demo wrote {sorted(pngs.written)}")
+            n_png = _check_pngs("demo overlays", pngs.written, card)
+            tm = demo["timing"]
+            log(f"  demo medium B{demo_batch} x {demo_views} views {dtype} [{card}]: warmup of its "
+                f"bucket {tm['warmup_s'] * 1e3:.1f} ms, then the request "
+                f"{tm['request_s'] * 1e3:.2f} ms (host clock, outputs on the host); {secs:.2f} s "
+                f"whole (model build and drawing included)")
+            out["demo"] = dict(timing=tm, seconds=secs, pngs=n_png, launches=got)
+
+            # Predictor.warmup of every bucket on a fresh predictor
+            pred = Predictor.from_config(
+                medium, dtype=torch.bfloat16 if dtype == "bf16" else torch.float32,
+                device=device, view_bucket=demo_views)
+            warm = {}
+            for b in buckets:
+                first = pred.warmup(b)
+                warm[b] = dict(first_s=first, again_s=pred.warmup(b))
+            log(f"  Predictor.warmup, medium, {demo_views} views [{card}]: " + "; ".join(
+                f"B{b} {w['first_s'] * 1e3:.1f} ms, again {w['again_s'] * 1e3:.1f} ms"
+                for b, w in warm.items()))
+            out["warmup"] = warm
+        finally:
+            os.chdir(cwd)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    quiet = [k for k in VIZ_PATH_KERNELS if on_card and not viz[k]]
+    if quiet:
+        raise AssertionError(f"kernels phase 8 did not launch: {quiet}")
+    out["launches"] = viz
+    out["card"] = card
+    results["drawing"] = out
+    return out
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:

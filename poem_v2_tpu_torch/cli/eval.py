@@ -6,8 +6,9 @@ Usage:
 
 The model of ``cfg.MODEL`` (weights from ``--reload`` / ``MODEL.PRETRAINED``,
 else from ``TRAIN.MANUAL_SEED``) evaluated on ``DATASET.TEST`` by the
-Evaluator; ``--eval_extra auc`` adds PCK-AUC, ``save`` dumps predictions;
-``draw`` waits for the viztools (ROADMAP queue 1, item 8).
+Evaluator; ``--eval_extra auc`` adds PCK-AUC, ``save`` dumps predictions,
+``draw`` writes drawings of the predictions over every view
+(``DrawingHandCallback``, PNGs under ``<exp>/draws``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import time
 from typing import Dict, Optional
 
 from ..data import batch_iterator, create_dataset
+from ..training.draw_callback import DrawingHandCallback
 from ..training.evaluator import AUCCallback, Evaluator, IdleCallback, PredictionSaverCallback
 from ..utils.config import get_config
 from ..utils.logger import get_logger
@@ -31,8 +33,7 @@ def make_callback(extra: str, exp_dir: str):
     if extra == "save":
         return PredictionSaverCallback(exp_dir=exp_dir)
     if extra == "draw":
-        raise NotImplementedError("--eval_extra draw renders hands through the viztools, which "
-                                  "the port has not yet (ROADMAP queue 1, item 8)")
+        return DrawingHandCallback(exp_dir=exp_dir)
     return IdleCallback()
 
 
@@ -42,8 +43,6 @@ def evaluate(cfg, args, timing: Optional[dict] = None) -> Dict[str, float]:
     and the seconds the evaluation loop took (the model's build excluded)."""
     logger = get_logger()
     callback_kind = args.eval_extra
-    if callback_kind == "draw":
-        make_callback(callback_kind, "")  # raises before any work
     model, aux = build_model(cfg, args)
     dataset = create_dataset(cfg.DATASET.TEST, data_preset=cfg.DATA_PRESET, is_train=False,
                              device=args.device)

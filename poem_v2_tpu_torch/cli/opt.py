@@ -37,7 +37,7 @@ def parse_exp_args(argv=None):
     p.add_argument("--eval_freq", type=int, default=1)
     p.add_argument("--log_freq", type=int, default=None,
                    help="steps between summary/console logs (default: cfg.TRAIN.LOG_INTERVAL)")
-    p.add_argument("--eval_extra", type=str, default="", help="auc | save (draw: not ported)")
+    p.add_argument("--eval_extra", type=str, default="", help="auc | save | draw")
     p.add_argument("--view_max", type=int, default=8, help="padded view count")
     p.add_argument("--mesh_data", type=int, default=None,
                    help="data-parallel ranks: torchrun's world size (the default; another "

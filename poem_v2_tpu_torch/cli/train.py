@@ -21,8 +21,8 @@ Under torchrun every rank draws the global batch a single process would draw
 and keeps its rows on ``cuda:<LOCAL_RANK>``, so an R-rank run repeats the
 single-process one. Rank 0 alone records (log, summaries, checkpoints) and
 validates, as the reference's DDP loop does; ``--resume`` loads on every
-rank. The JAX CLI's train-image summary waits for the viztools (ROADMAP
-queue 1, item 8).
+rank. Every fifth log step the first sample's first view goes to TensorBoard
+with its ground-truth skeleton drawn over it (``img/viz_joints_2d_train``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import os
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..data import batch_iterator, create_dataset
@@ -45,6 +46,7 @@ from ..utils.config import get_config
 from ..utils.logger import get_logger
 from ..utils.recorder import Recorder
 from ..utils.summary_writer import SummaryWriter
+from ..viztools.draw import denormalize_image, draw_joints_2d
 from .opt import parse_exp_args
 
 # steps of the first epoch that --profile traces
@@ -72,11 +74,19 @@ def build_model(cfg, args, device=None):
     return model, aux
 
 
+def train_image_summary(batch) -> np.ndarray:
+    """The first sample's first view, uint8 (H, W, 3), with its target 2D joints
+    drawn over it (read back from the device)."""
+    img = denormalize_image(batch["image"][0, 0].float().cpu().numpy())
+    return draw_joints_2d(img, batch["target_joints_2d"][0, 0].float().cpu().numpy())
+
+
 def train(cfg, args) -> Dict[str, Any]:
     """Run the training that ``cfg`` and ``args`` describe. Returns what a caller
     checks: the Trainer, every step's loss, the validations' measures, the last
-    checkpoint's path, bytes and write seconds, and per-step device times (CUDA
-    events around each step; host times on the CPU)."""
+    checkpoint's path, bytes and write seconds, per-step device times (CUDA events
+    around each step; host times on the CPU), each epoch's host seconds, and the
+    host seconds that drawing a fixed set for the device took (``feed_s``)."""
     logger = get_logger()
     device = torch.device(args.device)
     own_group = not mesh.in_group()
@@ -122,16 +132,17 @@ def train(cfg, args) -> Dict[str, Any]:
     loss_metric = LossMetric()
 
     # a fixed set replays the same batches every epoch: hold them on the device once
-    dev_cache = None
+    dev_cache, t_feed = None, time.perf_counter()
     if bool(cfg.DATASET.TRAIN.get("FIXED_SET", False)):
-        first = next(iter(batches()))
+        first = next(iter(batches()))  # draws (and with RENDER renders) the fixed set
         if batch_nbytes(first) * steps_per_epoch <= FIXED_FEED_CACHE_CAP_BYTES:
             dev_cache = cache_on_device(batches(), device)
             logger.info(f"fixed-set feed cached on {device}: {len(dev_cache)} batches, "
                         f"{batch_nbytes(first) * len(dev_cache) / 1e6:.0f} MB")
+    feed_s = time.perf_counter() - t_feed
 
     evaluator = val_ds = val_feed = None
-    losses, val_results, ckpt, step_ms = [], [], None, []
+    losses, val_results, ckpt, step_ms, epoch_s = [], [], None, [], []
     for epoch in range(start_epoch, cfg.TRAIN.EPOCH):
         t0 = time.time()
         prof = None
@@ -186,6 +197,11 @@ def train(cfg, args) -> Dict[str, Any]:
                 logger.info(f"epoch {epoch} step {step_idx}/{steps_per_epoch} "
                             f"loss {float(metrics['loss']):.4f} "
                             f"({batch_size / dt:.1f} samples/s, {dt * 1e3:.1f} ms/step)")
+                # the first view with its target skeleton every 5x interval (reference
+                # POEM.py:491-514 viz cadence)
+                if step_idx % (log_interval * 5) == 0 and "target_joints_2d" in dev_batch:
+                    summary.add_image("img/viz_joints_2d_train",
+                                      train_image_summary(dev_batch), global_step)
                 t_log, n_log = time.perf_counter(), 0
         drain()
         if prof is not None:
@@ -200,7 +216,8 @@ def train(cfg, args) -> Dict[str, Any]:
                 logger.info(f"checkpoint {ckpt['path']}: {ckpt['bytes']} bytes in "
                             f"{ckpt['write_s']:.3f} s")
         loss_metric.reset()
-        logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
+        epoch_s.append(time.time() - t0)
+        logger.info(f"epoch {epoch} done in {epoch_s[-1]:.1f}s")
 
         # validation on rank 0 alone; the others go on into the next epoch's first
         # step, where DDP's all-reduce waits for rank 0
@@ -230,8 +247,8 @@ def train(cfg, args) -> Dict[str, Any]:
     if own_group and mesh.in_group():
         torch.distributed.destroy_process_group()
     return dict(trainer=trainer, losses=losses, val=val_results, checkpoint=ckpt,
-                resumed=resumed, start_epoch=start_epoch, step_ms=step_ms,
-                dump_path=recorder.dump_path, steps_per_epoch=steps_per_epoch,
+                resumed=resumed, start_epoch=start_epoch, step_ms=step_ms, epoch_s=epoch_s,
+                feed_s=feed_s, dump_path=recorder.dump_path, steps_per_epoch=steps_per_epoch,
                 rank=rank, world=world)
 
 

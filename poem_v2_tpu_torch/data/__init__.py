@@ -18,10 +18,11 @@ class SyntheticSampleStream:
     epoch streams fresh samples."""
 
     def __init__(self, view_max=8, image_size=256, epoch_size=0, seed=0, fixed_set=False,
-                 view_range=None):
+                 view_range=None, render=False):
         gen_kw = {} if view_range is None else {"view_range": tuple(view_range)}
         self._gen = SyntheticMultiviewDataset(batch_size=1, view_max=view_max,
-                                              image_size=image_size, seed=seed, **gen_kw)
+                                              image_size=image_size, seed=seed, render=render,
+                                              **gen_kw)
         self.epoch_size = epoch_size
         self.fixed_set = fixed_set and epoch_size > 0
         self._cache = None
@@ -70,10 +71,6 @@ def create_dataset(cfg, data_preset=None, is_train: bool = True, **kwargs):
     if kind in ("MultiviewWebDataset", "WebDataset"):
         return MultiviewWebDataset(cfg, data_preset=data_preset, is_train=is_train, **kwargs)
     if kind == "Synthetic":
-        if cfg.get("RENDER", False):
-            raise NotImplementedError(
-                "the synthetic dataset's RENDER option draws skeletons through the viztools, "
-                "which the port has not yet (ROADMAP queue 1, item 8)")
         return SyntheticSampleStream(
             view_max=cfg.get("VIEW_MAX", 8),
             image_size=cfg.get("IMAGE_SIZE", 256),
@@ -81,6 +78,7 @@ def create_dataset(cfg, data_preset=None, is_train: bool = True, **kwargs):
             seed=cfg.get("SEED", 0),
             fixed_set=cfg.get("FIXED_SET", False),
             view_range=cfg.get("VIEW_RANGE", None),
+            render=cfg.get("RENDER", False),
         )
     # the map-style adapters (DexYCB / HO3D / OakInk / InterHand / Arctic /
     # FreiHAND and their multi-view variants) register themselves on import

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ...utils.config import _yaml
+from ...utils.config import load_yaml
 from ...utils.registry import DATASET
 from ..hdata import HDataset, MultiviewDataset
 from .common import bbox_center_scale, imread_rgb, mano_verts, require_dir
@@ -93,16 +93,6 @@ def s0_sequences(root: str, data_split: str) -> List[str]:
     return out
 
 
-def _yaml_load(path):
-    yaml = _yaml()
-    if yaml is None:
-        raise RuntimeError(f"cannot read {path}: the DexYCB adapter reads the dataset's .yml "
-                           "files with PyYAML, which is not installed here (the adapters are "
-                           "offline tools: dump the shards where PyYAML is)")
-    with open(path) as f:
-        return yaml.safe_load(f)
-
-
 class DexYCB(HDataset):
     """Single-view map-style DexYCB (reference dexycb.py:28-250)."""
 
@@ -133,7 +123,7 @@ class DexYCB(HDataset):
         self._intr: Dict[str, np.ndarray] = {}
         self.samples: List[tuple] = []  # (seq, serial, frame)
         for seq in self.sequences:
-            meta = _yaml_load(os.path.join(self.root, seq, "meta.yml"))
+            meta = load_yaml(os.path.join(self.root, seq, "meta.yml"))
             self._meta[seq] = meta
             if not use_left_hand and meta.get("mano_sides", ["right"])[0] == "left":
                 continue
@@ -154,7 +144,7 @@ class DexYCB(HDataset):
     def _betas_of(self, seq):
         if seq not in self._betas:
             calib = self._meta[seq]["mano_calib"][0]
-            y = _yaml_load(os.path.join(self.root, "calibration", f"mano_{calib}", "mano.yml"))
+            y = load_yaml(os.path.join(self.root, "calibration", f"mano_{calib}", "mano.yml"))
             self._betas[seq] = np.asarray(y["betas"], dtype=np.float32)
         return self._betas[seq]
 
@@ -162,7 +152,7 @@ class DexYCB(HDataset):
         """serial -> (4, 4) camera->tag transform (reference 412-419)."""
         if seq not in self._extr:
             ext_id = self._meta[seq]["extrinsics"]
-            y = _yaml_load(
+            y = load_yaml(
                 os.path.join(self.root, "calibration", f"extrinsics_{ext_id}", "extrinsics.yml")
             )
             out = {}
@@ -175,7 +165,7 @@ class DexYCB(HDataset):
 
     def intrinsics_of(self, serial) -> np.ndarray:
         if serial not in self._intr:
-            y = _yaml_load(
+            y = load_yaml(
                 os.path.join(self.root, "calibration", "intrinsics", f"{serial}_640x480.yml")
             )["color"]
             self._intr[serial] = np.array(

@@ -1,12 +1,13 @@
 """Synthetic, geometry-consistent multi-view batches
-(counterpart of ``poem_v2_tpu/data/synthetic.py``, noise images only).
+(counterpart of ``poem_v2_tpu/data/synthetic.py``).
 
 A MANO hand posed in the master frame, V_max pinhole cameras on a sphere
 looking at it, per-view projected 2D joints and a per-sample random
 valid-view count in ``view_range`` (the master is always view 0). For the
 same seed the numpy draws are the JAX package's, in the same order, so
 both yield the same arrays (the MANO skinning agrees to float32 rounding).
-The ``render`` option of the JAX dataset (skeleton drawings) is not ported.
+Images are noise, or with ``render`` the hand's skeleton drawn over a dim
+noise background by the viztools (the convergence-gate protocols).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ class SyntheticMultiviewDataset:
 
     def __init__(self, batch_size: int = 2, view_max: int = 4,
                  view_range: Tuple[int, int] = (1, 4), image_size: int = 256, seed: int = 0,
-                 mano_layer: Optional[ManoLayer] = None, random_views: bool = True):
+                 mano_layer: Optional[ManoLayer] = None, random_views: bool = True,
+                 render: bool = False):
         self.batch_size = batch_size
         self.view_max = view_max
         self.view_range = (max(1, view_range[0]), min(view_max, view_range[1]))
@@ -45,6 +47,11 @@ class SyntheticMultiviewDataset:
         self.rs = np.random.RandomState(seed)
         self.mano = mano_layer if mano_layer is not None else ManoLayer()
         self.random_views = random_views
+        # render=False: noise images, enough for plumbing and timing runs, where the
+        # heatmap branch can only memorise noise; render=True draws the articulated
+        # skeleton (per-finger bones and joint discs) into every view, so the 2D
+        # branch has a visual mapping to learn
+        self.render = render
 
     def sample_batch(self) -> Dict[str, np.ndarray]:
         B, V, S = self.batch_size, self.view_max, self.image_size
@@ -99,7 +106,19 @@ class SyntheticMultiviewDataset:
         else:
             n = np.full(B, self.view_range[1], dtype=int)
         view_mask = np.arange(V)[None, :] < n[:, None]
-        images = rs.rand(B, V, S, S, 3).astype(np.float32) - 0.5
+        if self.render:
+            from ..viztools.draw import draw_joints_2d
+
+            # a dim noise background under a crisp skeleton in every view
+            bg = (rs.rand(B, V, S, S, 3) * 40.0).astype(np.uint8)
+            images = np.empty((B, V, S, S, 3), dtype=np.float32)
+            radius = max(2, S // 64)
+            for b in range(B):
+                for v in range(V):
+                    drawn = draw_joints_2d(bg[b, v], joints_2d[b, v], radius=radius)
+                    images[b, v] = drawn.astype(np.float32) / 255.0 - 0.5
+        else:
+            images = rs.rand(B, V, S, S, 3).astype(np.float32) - 0.5
 
         return {
             "image": images,

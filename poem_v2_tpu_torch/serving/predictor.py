@@ -10,10 +10,13 @@ Typical use::
     pred = Predictor.from_config(MEDIUM, ckpt_path="medium.pt", device="cuda")
     out = pred(images, cam_intr, cam_extr)   # ragged views / batch are padded
     out["joints_3d"]                         # (B, 21, 3) master space
+
+``warmup(batch_size)`` runs one forward of a bucket ahead of traffic.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -21,6 +24,26 @@ import torch
 
 from ..models.poem import create_poem_model
 from ..utils.recorder import Recorder
+
+
+def ring_cameras(views: int, size: int, target_z: float = 0.5, radius: float = 0.5):
+    """(V, 3, 3) intrinsics and (V, 4, 4) camera->master extrinsics of ``views``
+    cameras on a horizontal ring around (0, 0, ``target_z``), each looking at it;
+    camera 0 sits at the master's origin."""
+    intr = np.zeros((views, 3, 3), np.float32)
+    extr = np.zeros((views, 4, 4), np.float32)
+    target = np.array([0.0, 0.0, target_z])
+    for v in range(views):
+        a = 2 * np.pi * v / views
+        centre = target + radius * np.array([np.sin(a), 0.0, -np.cos(a)])
+        z = (target - centre) / np.linalg.norm(target - centre)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        extr[v, :3, :3] = np.stack([x, np.cross(z, x), z], axis=1)
+        extr[v, :3, 3] = centre
+        extr[v, 3, 3] = 1.0
+        intr[v] = [[1.5 * size, 0, size / 2], [0, 1.5 * size, size / 2], [0, 0, 1]]
+    return intr, extr
 
 
 class Predictor:
@@ -53,6 +76,23 @@ class Predictor:
                                    state_dict.items()})
         size = cfg.get("DATA_PRESET", {}).get("IMAGE_SIZE", [256])[0]
         return cls(model.to(device=device, dtype=dtype), view_bucket=view_bucket, image_size=size)
+
+    def warmup(self, batch_size: int = 1) -> float:
+        """Run one forward of the bucket that holds ``batch_size`` at the view
+        bucket and wait for the device: the counterpart of the JAX Predictor's
+        compile ahead of traffic (here: the kernels' build and first launches,
+        cuDNN's algorithm choice, the caching allocator's blocks). The request is
+        blank views from a ring of cameras around a point 0.5 m in front of the
+        master (the JAX package's identity cameras would make every view the same
+        ray bundle, and the triangulation degenerate). Returns the seconds it took."""
+        t = time.perf_counter()
+        B, V, S = self._batch_bucket(batch_size), self.view_bucket, self.image_size
+        intr, extr = ring_cameras(V, S)
+        self(np.zeros((B, V, S, S, 3), np.float32), np.tile(intr, (B, 1, 1, 1)),
+             np.tile(extr, (B, 1, 1, 1)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t
 
     def _batch_bucket(self, b: int) -> int:
         for bb in self.batch_buckets:

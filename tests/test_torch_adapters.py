@@ -143,12 +143,17 @@ def test_registered_datasets_match_jax(tmp_path, monkeypatch):
 
 
 def test_dexycb_without_pyyaml_raises_clearly(tmp_path, monkeypatch):
+    """Without PyYAML (as on the card's machine) the adapter reads the dataset's .yml
+    files with the port's YAML subset reader, to the same samples."""
     from poem_v2_tpu_torch.data.adapters import dexycb
+    from poem_v2_tpu_torch.utils import config
 
     root = make_dexycb_root(str(tmp_path))
-    monkeypatch.setattr(dexycb, "_yaml", lambda: None)
-    with pytest.raises(RuntimeError, match="PyYAML"):
-        dexycb.DexYCB(root, sequences=SEQ)
+    want = dexycb.DexYCB(root, sequences=SEQ)
+    monkeypatch.setattr(config, "_yaml", lambda: None)
+    got = dexycb.DexYCB(root, sequences=SEQ)
+    assert len(got) == len(want) > 0
+    _same(got[0], want[0], MANO_KEYS["DexYCB"], "DexYCB without PyYAML")
 
 
 def test_mano_verts_follow_flat_hand_mean():

@@ -366,3 +366,40 @@ def test_phase_7_rehearsal(on_cpu, one_thread):
     assert set(data["process_workers"]) == {"thread", "process"}
     assert data["stages"]["views_kept"] >= 6 * 2  # the protocol keeps 2 to 3 of 3 views
     json.dumps({"data": {"codec": codec, **data}})
+
+
+def test_phase_8_rehearsal(on_cpu, one_thread, monkeypatch):
+    """Phase 8 on the CPU at a small size: the four RENDER configs through the train
+    CLI (the 800-epoch one resumed), the draw eval with every PNG decoded back, the
+    demo on a tiny HRNet model and Predictor.warmup per bucket; the launch counts
+    each path must show on the card are those of the synthetic model and of the
+    tiers' forward (none runs a kernel on the CPU)."""
+    from torch_port_helpers import tiny_cfg
+
+    checked = {}
+    monkeypatch.setattr(chip_smoke, "_check_launches",
+                        lambda name, got, want: checked.__setitem__(name, (got, want)))
+    results = {}
+    out = chip_smoke.phase_drawing(
+        results, device="cpu", dtype="fp32", gate_epochs=1, gate_size=2, batch=2, short_size=2,
+        draw_size=2, image=64, views=2, medium_model=tiny_cfg().to_dict(), medium_image=64,
+        demo_views=2, demo_batch=1, buckets=(1, 2))
+    zeros = {k: 0 for k in chip_smoke.KERNELS}
+    assert all(got == zeros for got, _ in checked.values())
+    assert set(checked) == {"gate train CLI", "gate eval CLI (draw)",
+                            "synthetic_overfit_render train CLI",
+                            "synthetic_overfit_gate_mano train CLI",
+                            "synthetic_overfit_gate_mano_800 (resumed) train CLI", "demo (medium)"}
+    step, fwd = chip_smoke.LAUNCHES_PER_SYNTHETIC_TRAIN_STEP, \
+        chip_smoke.LAUNCHES_PER_SYNTHETIC_FORWARD
+    assert checked["gate train CLI"][1] == {k: step[k] + fwd[k] for k in zeros}  # 1 step, 1 val
+    assert checked["gate eval CLI (draw)"][1] == fwd
+    assert checked["demo (medium)"][1] == {k: 2 * n for k, n in
+                                           chip_smoke.LAUNCHES_PER_FORWARD.items()}
+    assert set(chip_smoke.VIZ_PATH_KERNELS) <= {k for k, n in step.items() if n} | {
+        k for k, n in chip_smoke.LAUNCHES_PER_FORWARD.items() if n}
+    assert out["gate_draw"]["pngs"] == 2 * (1 + 2 * 2) and out["demo"]["pngs"] == 1
+    assert out["gate_train"]["feed_s"] > 0 and len(out["gate_train"]["epoch_s"]) == 1
+    assert out["gate_mano_800"]["steps"] == 1 and set(out["warmup"]) == {1, 2}
+    assert out["launches"] == zeros and results["drawing"] is out
+    json.dumps({"drawing": out}, default=float)

@@ -136,12 +136,14 @@ def test_default_device_is_the_card_and_inert_flags_parse():
 
 
 def test_what_waits_raises(tmp_path, monkeypatch):
-    """--eval_extra draw (item 8); an orbax directory, as a checkpoint and as
-    PRETRAINED_BACKBONE, names the export script."""
+    """--eval_extra draw no longer waits (it draws: tests/test_torch_demo.py holds
+    its pixels); an orbax directory, as a checkpoint and as PRETRAINED_BACKBONE,
+    names the export script."""
     monkeypatch.chdir(tmp_path)
     path = _write(tmp_path, _cfg())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eval_cli.main(["-c", path, *BASE, "--eval_extra", "draw"])
+    eval_cli.main(["-c", path, *BASE, "--eval_extra", "draw"])
+    evals = [d for d in os.listdir(tmp_path / "exp") if d.startswith("default_eval")]
+    assert any(f.endswith(".png") for f in os.listdir(tmp_path / "exp" / evals[0] / "draws"))
     orbax = tmp_path / "orbax_ckpt"
     orbax.mkdir()
     (orbax / "_METADATA").write_text("{}")

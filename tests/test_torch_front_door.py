@@ -59,8 +59,9 @@ def test_get_config_merges_like_jax(path, kw):
 
 
 def test_get_config_without_yaml_reads_known_configs(monkeypatch, tmp_path):
-    """Without PyYAML a file whose stem names a config of ``configs.py`` is read
-    from there (same tree as from the file); any other file raises."""
+    """Without PyYAML a config file is read by the port's YAML subset reader (the
+    same tree as PyYAML's); another file is read the same way, and text outside
+    the subset raises with its line."""
     smoke = os.path.join(REPO, "configs", "synthetic_smoke.yaml")
     medium = os.path.join(REPO, "configs", "release", "train_medium.yaml")
     with_yaml = tconfig.get_config(smoke, arg=_args(batch_size=2))
@@ -75,11 +76,13 @@ def test_get_config_without_yaml_reads_known_configs(monkeypatch, tmp_path):
         assert got[section] == want, section
     other = tmp_path / "my_experiment.yaml"
     other.write_text("TRAIN: {BATCH_SIZE: 2}\n")
-    with pytest.raises(RuntimeError, match="PyYAML"):
+    assert tconfig.get_config(str(other)).TRAIN.BATCH_SIZE == 2
+    other.write_text("TRAIN:\n  NOTE: |\n    text\n")
+    with pytest.raises(tconfig.YAMLSubsetError, match="my_experiment.yaml:2: "):
         tconfig.get_config(str(other))
-    # a dict is taken as the file's contents; the dump is JSON, which YAML reads
+    # a dict is taken as the file's contents; the dump is YAML either way
     cfg = tconfig.get_config(tconfigs.SYNTHETIC_SMOKE)
-    assert yaml.safe_load(cfg.dump()) == cfg.to_dict()
+    assert yaml.safe_load(cfg.dump()) == tconfig.parse_yaml(cfg.dump()) == cfg.to_dict()
 
 
 def test_config_node_behaves_like_jax():
@@ -172,14 +175,15 @@ def test_create_dataset_synthetic_matches_jax(name):
 
 
 # the webdataset and adapter TYPEs route since the data layer was ported
-# (tests/test_torch_data.py::test_create_dataset_routes_like_jax)
+# (tests/test_torch_data.py::test_create_dataset_routes_like_jax), and RENDER
+# since ROADMAP queue 1's item 8 (tests/test_torch_render_data.py holds its pixels)
 @pytest.mark.parametrize("changes,match", [({"RENDER": True}, "item 8")])
 def test_create_dataset_raises_for_what_waits(changes, match):
     from poem_v2_tpu_torch.data import create_dataset
 
-    with pytest.raises(NotImplementedError, match=match):
-        create_dataset(tconfig.Config(dict(tconfigs.SYNTHETIC_SMOKE["DATASET"]["TEST"],
-                                           **changes)))
+    data = dict(tconfigs.SYNTHETIC_SMOKE["DATASET"]["TEST"], EPOCH_SIZE=1, **changes)
+    sample, = list(create_dataset(tconfig.Config(data)))
+    assert sample["image"].max() > 0.45, f"{match}: RENDER draws the skeleton"
 
 
 # ---- metrics ------------------------------------------------------------------

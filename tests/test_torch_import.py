@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, flax, optax, orbax, PyYAML or poem_v2_tpu anywhere in it."""
+"""The port stands alone: no JAX, flax, optax, orbax, PyYAML or poem_v2_tpu anywhere in it,
+and it draws without OpenCV, matplotlib, tqdm or open3d."""
 
 import ast
 import os
@@ -25,6 +26,25 @@ def test_no_forbidden_import_in_sources():
             if f.endswith(".py"):
                 p = os.path.join(root, f)
                 bad += [(p, m) for m in _imported_roots(p) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+# what the JAX package draws with; the card's machine has none of them. The one
+# import of them in the port: OpenCV's JPEG codec on the CPU, inside a function of
+# data/codec.py (a CUDA device decodes with nvJPEG; PNG is the port's own)
+DRAWING_LIBS = ("cv2", "matplotlib", "tqdm", "open3d", "PIL")
+ALLOWED = {(os.path.join("data", "codec.py"), "cv2")}
+
+
+def test_no_drawing_library_import_in_sources():
+    bad = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                p = os.path.join(root, f)
+                rel = os.path.relpath(p, PKG)
+                bad += [(rel, m) for m in _imported_roots(p)
+                        if m in DRAWING_LIBS and (rel, m) not in ALLOWED]
     assert not bad, bad
 
 
@@ -112,6 +132,84 @@ def test_every_module_imports_without_cv2_pil_or_yaml():
     env["PYTHONPATH"] = os.path.dirname(PKG)
     blocked = FORBIDDEN + ("cv2", "PIL")
     proc = subprocess.run([sys.executable, "-c", _NO_CV2_SCRIPT % {"blocked": blocked}],
+                          capture_output=True, text=True, env=env, timeout=300,
+                          cwd=os.path.dirname(PKG))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+_DRAW_SCRIPT = r"""
+import importlib, os, pkgutil, sys, tempfile
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %(blocked)r:
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import numpy as np, torch
+import poem_v2_tpu_torch
+for m in pkgutil.walk_packages(poem_v2_tpu_torch.__path__, "poem_v2_tpu_torch."):
+    importlib.import_module(m.name)
+from poem_v2_tpu_torch import viztools
+from poem_v2_tpu_torch.cli import demo
+from poem_v2_tpu_torch.configs import SYNTHETIC
+from poem_v2_tpu_torch.data import create_dataset
+from poem_v2_tpu_torch.data.codec import decode_png
+from poem_v2_tpu_torch.training.draw_callback import DrawingHandCallback
+from poem_v2_tpu_torch.utils.config import Config, dump_yaml, get_config
+from poem_v2_tpu_torch.utils.etqdm import etqdm
+
+torch.set_num_threads(1)
+tmp = tempfile.mkdtemp()
+cfg = get_config(os.path.join("configs", "synthetic_overfit_gate.yaml"))  # the subset reader
+data = dict(cfg.DATASET.TRAIN.to_dict(), EPOCH_SIZE=1, IMAGE_SIZE=64, VIEW_MAX=2,
+            VIEW_RANGE=[2, 2])
+sample, = list(etqdm(create_dataset(Config(data)), desc="render"))
+img = viztools.denormalize_image(sample["image"][0])
+drawn = viztools.draw_joints_2d(img, sample["target_joints_2d"][0])
+intr = sample["target_cam_intr"][0]
+faces = np.arange(776)[:, None] + np.arange(3)[None]
+mesh = viztools.render_mesh_overlay(img, sample["master_verts_3d"], faces, intr)
+viztools.draw_wireframe_hand_large(drawn, sample["target_joints_2d"][0])
+cap = viztools.caption_combined_view(viztools.combine_view([drawn, mesh]), "gate")
+ctx = viztools.VizContext(image_size=48, save_dir=tmp)
+ctx.update_by_mesh("hand", sample["master_verts_3d"], np.array([[0, 1, 2], [2, 3, 4]]), "red")
+ctx.run(n_steps=1)
+cb = DrawingHandCallback(tmp, max_samples=1)
+preds = {"pred_joints_3d": sample["master_joints_3d"][None],
+         "pred_verts_3d": sample["master_verts_3d"][None]}
+batch = {"image": sample["image"][None], "view_mask": np.ones((1, 2), bool),
+         "cam_intr": sample["target_cam_intr"][None], "cam_extr": sample["target_cam_extr"][None],
+         "master_joints_3d": sample["master_joints_3d"][None],
+         "master_verts_3d": sample["master_verts_3d"][None]}
+cb(preds, {k: torch.as_tensor(v) for k, v in batch.items()}, 0)
+grid = decode_png(open(os.path.join(tmp, "draws", "step00000_s0.png"), "rb").read())
+assert grid.shape == (64, 128, 3) and len(os.listdir(os.path.join(tmp, "draws"))) == 5
+# the demo on the synthetic smoke model, its config read by the subset reader
+path = os.path.join(tmp, "demo.yaml")
+small = SYNTHETIC["synthetic_smoke"]
+open(path, "w").write(dump_yaml({"MODEL": small["MODEL"], "DATA_PRESET": small["DATA_PRESET"]}))
+out = demo.main(["-c", path, "--out", os.path.join(tmp, "demo"), "--batch", "1", "--views",
+                 "2", "--dtype", "fp32", "--device", "cpu"])
+assert np.isfinite(out["verts_3d"]).all() and os.path.exists(os.path.join(tmp, "demo",
+                                                                          "demo_0.png"))
+leaked = [k for k in sys.modules if k.split(".")[0] in %(blocked)r]
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_drawing_path_runs_without_opencv_matplotlib_tqdm_open3d_or_yaml():
+    """As on the card's machine: the RENDER dataset, the viztools, the draw callback
+    and the demo run without OpenCV, matplotlib, open3d, PIL, PyYAML or JAX, and
+    none of them is imported."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    env["OMP_NUM_THREADS"] = "1"
+    # tqdm stays importable: torch's own compiler stack imports it where it is
+    # installed (the static check above holds the port to none)
+    blocked = FORBIDDEN + tuple(m for m in DRAWING_LIBS if m != "tqdm")
+    proc = subprocess.run([sys.executable, "-c", _DRAW_SCRIPT % {"blocked": blocked}],
                           capture_output=True, text=True, env=env, timeout=300,
                           cwd=os.path.dirname(PKG))
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
