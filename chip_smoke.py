@@ -158,14 +158,36 @@ non-zero:
    (its warmup, the request's latency, its PNGs read back, 2 forwards' launches),
    and ``Predictor.warmup`` of buckets 1, 2, 4 and 8. K1, K2, K3, K3b, K4, K6,
    K6b and K7 must launch in this phase.
+9. POEM's two last head options, ``HEAD.TRANSFORMER.TYPE: PtEmbedTRv3`` (the METRO
+   + point-transformer decoder) and ``HEAD.PETR_EMBEDDING`` (the frustum
+   embedding), on medium, then the v1 heads and METRO (phase 1f holds K3 at the
+   METRO stage's 4895-token self-attention, head dims 256 / 64 / 16, and K1 at
+   the 4096-point BPS self-attention against their plain versions first): (a)
+   float32 card against CPU at B1 and B2 (8 and 5 of 8 views), PETR at 1e-4 m,
+   PtEmbedTRv3's coarse mesh at 1e-5 m and its refinement at 1e-3 m through K1
+   and 2e-4 m on the gathered path (why: ``phase_variant_parity``); (b)
+   behind the Predictor in bf16, 8-view requests at B1 / B4 / B16 and a mixed
+   2-8-view one at B4, median of 3, peak GiB, the launches of every forward
+   (v3: K1 7, K3 12, K4 1, K5 on the mixed one); (c) through
+   ``cli/train.py:train``, 4 epochs of one fixed synthetic 256 px batch (v3 at
+   B2, PETR at B8), step ms (CUDA events), peak GiB, the run's launches, and the
+   batch's loss under fixed noise, which must fall over 12 steps; (d) both v1
+   heads at the JAX defaults on 8 views of 32 x 32 maps, float32 card against
+   CPU block by block, within 5 times the CPU's own spread under a 1e-7 nudge of
+   its input, and the bf16 forward timed; (e) ``create_metro_model`` float32 card against CPU and a bf16
+   forward at B16 timed; (f) K3 at the METRO stage's shapes from a CUDA graph
+   beside ``F.scaled_dot_product_attention``.
 
 The lines before the kernels line are JSON objects ``{"data": ...}`` with phase
-7's readings and ``{"drawing": ...}`` with phase 8's. The second-to-last line is a JSON object with one entry per kernel (``ms``
+7's readings, ``{"drawing": ...}`` with phase 8's and ``{"variants": ...}`` with
+phase 9's. The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
 K9's also their selections' times from phase 1e under ``selection``; K3's and
 K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
 on phase 5's paths under ``front_door_launches``, on phase 7's under
-``data_launches``, on phase 8's under ``viz_launches``); the last
+``data_launches``, on phase 8's under ``viz_launches``, on phase 9's under
+``variant_launches``; K3's and K1's phase 1f cases under ``v3_shapes``, K3's
+phase 9f graph times under ``metro_stage_graph``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
 without a CUDA device it fails before printing any result.
 """
@@ -592,11 +614,50 @@ def check_lse(name, got, want, dtype, ref64=None):
     return err
 
 
+def variant_kernel_cases(rs: np.random.RandomState, B=2, M=799 + 4096, Hs=(1024, 256, 64),
+                         N=4096, K=32, D=256):
+    """The shapes only POEM's PtEmbedTRv3 decoder gives the kernels, named ``v3/...``:
+    K3 as the METRO stage's self-attention over its M tokens (799 mesh + 4096 BPS
+    points) at widths ``Hs`` in 4 heads (head dims 256, 64 and 16), and K1 as
+    PtEmbedTRv2's self-attention over the N-point BPS cloud at K neighbours.
+    Cases as :func:`kernel_cases` makes them, held to their plain versions on
+    the card."""
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    cases = {}
+    for H in Hs:
+        cases[f"v3/dense_cross_attention/hd{H // 4}_M{M}"] = dict(
+            kernel="dense_cross_attention", args=(f(B, M, H), f(B, M, H), f(B, M, H)),
+            kw=dict(num_heads=4, sm_scale=1 / math.sqrt(H // 4)),
+            plain=cross_attn.plain_dense_cross_attention, flops=4.0 * B * M * M * H,
+            library=library_sdpa, plain_on_card=True, lse=True)
+    cloud = _ball(rs, N)[None].expand(B, N, 3).contiguous()
+    fcd, fcg = _mlps(f, D)
+    cases[f"v3/fused_knn_vector_attention/self_N{N}_K{K}"] = dict(
+        kernel="fused_knn_vector_attention",
+        args=(f(B, N, D), cloud, cloud, f(B, N, D), f(D, D) / 16, f(D, D) / 16, fcd, fcg),
+        kw=dict(n_neighbor=K, return_idx=True), plain=knn_attn.plain_fused_knn_vector_attention,
+        flops=knn_attention_flops(B, N, K, N, D),
+        flops_five=attention_flops(B * N * K, D, 5) + 8.0 * B * N * N, plain_on_card=True)
+    return cases
+
+
+def phase_variant_kernels(results, **shapes):
+    """Phase 1f: the kernels at the PtEmbedTRv3 decoder's shapes, before any model runs."""
+    log("phase 1f: kernels at the PtEmbedTRv3 decoder's shapes vs plain versions")
+    run_kernel_cases(results, variant_kernel_cases(np.random.RandomState(20), **shapes))
+
+
 def phase_kernels(results, synthetic=None, **shapes):
     log("phase 1: kernels vs plain versions")
     rs = np.random.RandomState(0)
     cases = kernel_cases(rs, **shapes)
     cases.update(synthetic_kernel_cases(np.random.RandomState(10), **(synthetic or {})))
+    run_kernel_cases(results, cases)
+
+
+def run_kernel_cases(results, cases):
+    """Each case, float32 and bfloat16: the kernel against its plain version, timed
+    beside it, the library call and the bound, into ``results[case]``."""
     for case, c in cases.items():
         kname, args, kw, plain = c["kernel"], c["args"], c["kw"], c["plain"]
         for dtype in (torch.float32, torch.bfloat16):
@@ -1493,6 +1554,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     results = {}
     phase_kernels(results)
+    phase_variant_kernels(results)
     phase_core_shapes(results)
     phase_selection_shapes(results)
     phase_train_kernels(results)
@@ -1515,6 +1577,16 @@ def main() -> int:
     codec = phase_codec(results)
     data = phase_data(results)
     drawing = phase_drawing(results)
+    phase_variant_parity(results)
+    serving_v = phase_variant_serving(results)
+    train_v = phase_variant_train(results)
+    heads_v1 = phase_v1_heads(results)
+    metro = phase_metro(results)
+    phase_metro_k3_times(results)
+    # phase 9's paths, each counted around its own run
+    variant_paths = {**{f"{k}_serving": v for k, v in serving_v.items()},
+                     **{f"{k}_train": v for k, v in train_v.items()},
+                     **{f"v1/{k}": v for k, v in heads_v1.items()}, "metro": metro}
     path_launches = {
         **{k: launches[k] for k, n in LAUNCHES_PER_FORWARD.items() if n},
         "scrambled_merge_gather": tier_launches["scrambled_merge_gather"],
@@ -1589,6 +1661,17 @@ def main() -> int:
         e["data_launches"] = data["eval_workers_4"]["launches"][e["name"]]
         # phase 8's drawing path: the RENDER configs' runs, the draw eval and the demo
         e["viz_launches"] = drawing["launches"][e["name"]]
+        # phase 9's: the two head options served (3 requests a bucket and the mixed
+        # one) and trained (steps and a validation), the v1 heads' forward, METRO's
+        e["variant_launches"] = {path: n[e["name"]] for path, n in variant_paths.items()}
+    # K3 and K1 at the shapes only the PtEmbedTRv3 decoder gives them (phases 1f, 9f)
+    for name in ("dense_cross_attention", "fused_knn_vector_attention"):
+        by_name[name]["v3_shapes"] = {
+            case[len(f"v3/{name}/"):]: {k: r["bfloat16"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            | {"max_abs_err_f32": r["float32"]["max_abs_err"]}
+            for case, r in results.items() if case.startswith(f"v3/{name}/")}
+    by_name["dense_cross_attention"]["metro_stage_graph"] = results["metro_k3"]
     # every kernel the synthetic paths run launched there
     quiet = [k for k, n in LAUNCHES_PER_SYNTHETIC_TRAIN_STEP.items()
              if n and not front["synthetic_train"]["launches"][k]]
@@ -1603,6 +1686,9 @@ def main() -> int:
     log(gpu_line())
     print(json.dumps({"data": {"codec": codec, **data}}), flush=True)
     print(json.dumps({"drawing": drawing}, default=float), flush=True)
+    print(json.dumps({"variants": {k: results[k] for k in (
+        "variant_parity", "variant_serving", "variant_train", "v1_heads", "metro", "metro_k3")}},
+        default=float), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3762,6 +3848,425 @@ def phase_drawing(results, device="cuda", dtype="bf16", gate_epochs=2, gate_size
     out["card"] = card
     results["drawing"] = out
     return out
+
+
+# ---- phase 9: POEM's PtEmbedTRv3 and PETR_EMBEDDING options, the v1 heads, METRO ----
+
+VARIANTS = {"v3": "HEAD.TRANSFORMER.TYPE PtEmbedTRv3", "petr": "HEAD.PETR_EMBEDDING"}
+# METRO encoder layers a PtEmbedTRv3 forward runs: 3 blocks of 4 (decoder_v3.py)
+METRO_LAYERS = 12
+
+
+def variant_model(name, model_cfg=None):
+    """``model_cfg`` (default medium's MODEL) with one of the two head options."""
+    import copy
+
+    from poem_v2_tpu_torch.configs import MEDIUM
+
+    cfg = copy.deepcopy(model_cfg or MEDIUM["MODEL"])
+    if name == "v3":
+        cfg["HEAD"]["TRANSFORMER"]["TYPE"] = "PtEmbedTRv3"
+    else:
+        cfg["HEAD"]["PETR_EMBEDDING"] = True
+    return cfg
+
+
+def variant_launches(name, n_blocks, train=False, mixed=False):
+    """Launches of one forward (or one train step) of a variant with ``n_blocks``
+    decoder blocks. PtEmbedTRv3: K3 in each METRO layer (eval only: it trains by
+    the einsum path, as JAX does), K1 in PtEmbedTRv2's BPS self-attention and in
+    each block's query self- and cross-attention (K6 / K6b / K7 in training), K4
+    once. PETR: the flagship decoder's counts. K5 once more on a mixed batch."""
+    if name == "v3":
+        knn = 1 + 2 * n_blocks
+        if train:
+            return _launch_counts(fused_knn_vector_attention=knn,
+                                  knn_vector_attention_trainable=knn,
+                                  knn_vector_attention_trainable_bwd=knn, scatter_add_rows=knn)
+        return _launch_counts(dense_cross_attention=METRO_LAYERS, fused_knn_vector_attention=knn,
+                              grid_sample_points_fused=1, scrambled_merge_gather=int(mixed))
+    knn = 2 * (n_blocks - 1)
+    if train:
+        return _launch_counts(dense_cross_attention=2 * n_blocks,
+                              dense_cross_attention_bwd=2 * n_blocks,
+                              fused_knn_vector_attention=knn, knn_vector_attention_trainable=knn,
+                              knn_vector_attention_trainable_bwd=knn, scatter_add_rows=knn)
+    return _launch_counts(dense_cross_attention=2 * n_blocks, fused_anchor_vector_attention=2,
+                          fused_knn_vector_attention=knn, grid_sample_points_fused=1,
+                          scrambled_merge_gather=int(mixed))
+
+
+def _select_exactly(module, exact=True):
+    """Set the vector-attention blocks under ``module`` to the gathered path, which
+    selects neighbours by full float32 distances (``exact``), or back to K1."""
+    from poem_v2_tpu_torch.models.bricks.point_transformer import _VectorAttention
+
+    for m in module.modules():
+        if isinstance(m, _VectorAttention):
+            m.use_fused_knn = not exact
+    return module
+
+
+def _set_diffs(got, want):
+    """Max |got - want| of each coordinate set (the first axis), metres."""
+    return [float((g.float().cpu() - w).abs().max()) for g, w in zip(got, want)]
+
+
+def _n_blocks(model_cfg):
+    return model_cfg["HEAD"]["TRANSFORMER"]["N_BLOCKS"]
+
+
+def _request_tensors(rs, B, V, image, n_views=None):
+    images, intr, extr = look_at_request(rs, B, V, image)
+    n = np.full(B, V) if n_views is None else np.asarray(n_views)
+    mask = np.arange(V)[None, :] < n[:, None]
+    return (torch.from_numpy(images).float() / 255.0 - 0.5, torch.from_numpy(mask),
+            torch.from_numpy(intr), torch.from_numpy(extr))
+
+
+def phase_variant_parity(results, device="cuda", model_cfg=None, image=256, views=8,
+                         part_views=5):
+    """Phase 9a: medium with each option in float32 at B1 (all views) and B2 (all and
+    ``part_views`` of them), the kernels on the card against the plain versions on
+    the CPU, same weights and requests, TF32 off (main sets it)."""
+    import copy
+
+    from poem_v2_tpu_torch.models.poem import create_poem_model
+
+    log("phase 9a: PtEmbedTRv3 and PETR_EMBEDDING, card (kernels) vs CPU (plain versions), "
+        "float32, TF32 off")
+    # phase 3's limits: float32 sums in other orders through the network. PtEmbedTRv3's
+    # coarse mesh (the METRO stage) is held to 1e-5 m; its 3 refinement blocks amplify
+    # float32 differences at random weights (on the gathered path, which selects by
+    # full float32 distances: 6e-7, 3e-5, 3e-5, 1e-4 m by coordinate set), 2e-4 m
+    # there, and on K1's path its queries also meet K1's packed keys, which tie
+    # distances within 2**-11: a tie broken the other way moves a query by its
+    # neighbour's difference, 1e-3 m there
+    tol = {"pred_joints_uv": 1e-2, "pred_ref_joints_3d": 1e-4, "all_coords_preds": 1e-4,
+           "pred_joints_3d": 1e-4, "pred_verts_3d": 1e-4}
+    out = {}
+    for name in VARIANTS:
+        model, _ = create_poem_model(variant_model(name, model_cfg), device="cpu",
+                                     generator=torch.Generator().manual_seed(0))
+        dev_model = copy.deepcopy(model).to(device)
+        paths = [("K1", False)] + ([("gathered", True)] if name == "v3" else [])
+        for B, n_views in ((1, None), (2, [views, part_views])):
+            args = _request_tensors(np.random.RandomState(30 + B), B, views, image, n_views)
+            for path, exact in paths[:1 if B == 1 else None]:
+                for m in (model, dev_model):
+                    _select_exactly(m.head.transformer, exact)
+                with torch.inference_mode():
+                    t = time.time()
+                    want = model(*args)
+                    cpu_s = time.time() - t
+                    got = dev_model(*(a.to(device) for a in args))
+                    torch.cuda.synchronize()
+                diffs = {}
+                for key in tol:
+                    g, w = got[key].float().cpu(), want[key]
+                    if g.shape != w.shape or not torch.isfinite(g).all():
+                        raise AssertionError(
+                            f"{name} B{B} {key}: shape {tuple(g.shape)} vs {tuple(w.shape)}, "
+                            f"finite {bool(torch.isfinite(g).all())}")
+                    diffs[key] = float((g - w).abs().max())
+                sets = _set_diffs(got["all_coords_preds"], want["all_coords_preds"])
+                lim = dict(tol)
+                if name == "v3":
+                    refined = 2e-4 if exact else 1e-3
+                    lim.update(all_coords_preds=refined, pred_joints_3d=refined,
+                               pred_verts_3d=refined)
+                    if sets[0] > 1e-5:
+                        raise AssertionError(f"v3 B{B}: the coarse mesh {sets[0]} m apart")
+                log(f"  {name} B{B} ({'all' if n_views is None else n_views} views, {path}): "
+                    f"max |card - cpu| " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+                    + "; by coordinate set " + ", ".join(f"{d:.2e}" for d in sets)
+                    + f" m (cpu forward {cpu_s:.1f} s)")
+                bad = {k: d for k, d in diffs.items() if d > lim[k]}
+                if bad:
+                    raise AssertionError(f"{name} B{B} {path}: card vs cpu over the limits {bad}")
+                out[f"{name}/B{B}/{path}"] = dict(diffs, by_set=sets)
+        del model, dev_model
+        torch.cuda.empty_cache()
+    results["variant_parity"] = out
+
+
+def _check_request(name, out, bs, views):
+    for key, shape in (("joints_3d", (bs, 21, 3)), ("verts_3d", (bs, 778, 3)),
+                       ("joints_uv", (bs, views, 21, 2))):
+        if out[key].shape != shape or not np.isfinite(out[key]).all():
+            raise AssertionError(f"{name} {key}: shape {out[key].shape}, "
+                                 f"finite {np.isfinite(out[key]).all()}")
+
+
+def phase_variant_serving(results, device="cuda", dtype="bf16", model_cfg=None, image=256,
+                          views=8, buckets=(1, 4, 16), mixed_batch=4):
+    """Phase 9b: each option behind the Predictor in bfloat16: requests of all views
+    at each batch bucket and a mixed 2-``views`` request; latency (median of 3,
+    host clock, synchronised), peak GiB and the launches of every forward."""
+    from poem_v2_tpu_torch.serving.predictor import Predictor
+
+    log("phase 9b: serving PtEmbedTRv3 and PETR_EMBEDDING behind Predictor")
+    card = gpu_line()
+    out, launches = {}, {}
+    for name in VARIANTS:
+        cfg = {"MODEL": variant_model(name, model_cfg),
+               "DATA_PRESET": {"IMAGE_SIZE": [image, image]}}
+        n_blocks = _n_blocks(cfg["MODEL"])
+        pred = Predictor.from_config(cfg, dtype=torch.bfloat16 if dtype == "bf16"
+                                     else torch.float32, device=device, seed=0,
+                                     view_bucket=views)
+        rs = np.random.RandomState(40)
+        reqs = {f"B{b}": (look_at_request(rs, b, views, image), None) for b in buckets}
+        reqs[f"mixed B{mixed_batch}"] = (look_at_request(rs, mixed_batch, views, image),
+                                         mixed_view_mask(rs, mixed_batch, views))
+        for req, mask in reqs.values():  # first call a bucket: cuDNN, the allocator, builds
+            pred(*req, view_mask=mask)
+        on_card = device.startswith("cuda")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rows = {}
+        for key, (req, mask) in reqs.items():
+            want = variant_launches(name, n_blocks, mixed=mask is not None)
+            times = []
+            for _ in range(3):
+                before = read_launches()
+                t = time.perf_counter()
+                res = pred(*req, view_mask=mask)  # host arrays: the call ends synchronised
+                times.append((time.perf_counter() - t) * 1e3)
+                after = read_launches()
+                _check_launches(f"{name} {key} forward", {k: after[k] - before[k] for k in after},
+                                want)
+                _check_request(f"{name} {key}", res, req[0].shape[0], views)
+            rows[key] = dict(median_ms=float(np.median(times)), runs_ms=times)
+        launches[name] = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+        log(f"  {name} [{card}]: " + "; ".join(
+            f"{k} {r['median_ms']:.2f} ms ({', '.join(f'{t:.1f}' for t in r['runs_ms'])})"
+            for k, r in rows.items()) + f"; peak {peak:.2f} GiB; launches a forward "
+            + ", ".join(f"{k} {v}" for k, v in variant_launches(name, n_blocks).items() if v))
+        out[name] = dict(requests=rows, peak_gib=peak, card=card,
+                         launches_per_forward=variant_launches(name, n_blocks))
+        del pred
+        torch.cuda.empty_cache()
+    results["variant_serving"] = out
+    return launches
+
+
+def phase_variant_train(results, device="cuda", dtype="bf16", model_cfg=None, image=256,
+                        views=8, batches=(("v3", 2), ("petr", 8)), steps=4):
+    """Phase 9c: each option through ``cli/train.py:train`` on synthetic ``image`` px
+    data (1-``views`` valid views), ``steps`` epochs of one fixed batch, validation
+    and a checkpoint after the last: step ms (CUDA events), peak GiB, the launches
+    of the run; then ``2 * steps`` more steps of the Trainer on the batch, and its
+    train-mode loss under fixed noise (the same jitter draws and dropout seed)
+    before the run and after them, which must fall (4 steps from random weights
+    do not always lower it)."""
+    import copy
+    import os
+    import tempfile
+
+    from poem_v2_tpu_torch.cli import train as train_cli
+    from poem_v2_tpu_torch.cli.opt import parse_exp_args
+    from poem_v2_tpu_torch.configs import MEDIUM
+    from poem_v2_tpu_torch.data import batch_iterator, create_dataset
+    from poem_v2_tpu_torch.models.poem import draw_ref_noise
+    from poem_v2_tpu_torch.training.trainer import Trainer
+    from poem_v2_tpu_torch.utils.config import get_config
+
+    log("phase 9c: training PtEmbedTRv3 and PETR_EMBEDDING through the train CLI")
+    card = gpu_line()
+    out, launches = {}, {}
+    cwd = os.getcwd()
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name, B in batches:
+                cfg = copy.deepcopy(MEDIUM)
+                cfg["MODEL"] = variant_model(name, model_cfg)
+                cfg["TRAIN"]["EPOCH"] = steps
+                cfg["DATA_PRESET"]["IMAGE_SIZE"] = [image, image]
+                data = {"TYPE": "Synthetic", "VIEW_MAX": views, "VIEW_RANGE": [1, views],
+                        "IMAGE_SIZE": image, "EPOCH_SIZE": B, "FIXED_SET": True, "SEED": 7}
+                cfg["DATASET"] = {"TRAIN": data, "TEST": dict(data)}
+                argv = ["--view_max", str(views), "-b", str(B), "--device", device, "--dtype",
+                        dtype, "--eval_freq", str(steps), "--ckpt_freq", str(steps),
+                        "--snapshot", "0"]
+                # the CLI's initial model (its build_model, same seed) on its fixed batch
+                args = parse_exp_args(["-c", "<dict>", "--exp_id", "default", *argv])
+                ccfg = get_config(cfg, arg=args, merge=True)
+                model0, aux = train_cli.build_model(ccfg, args)
+                probe = Trainer(model0, aux, cfg["TRAIN"], cfg["MODEL"]["LOSS"])
+                ds = create_dataset(ccfg.DATASET.TRAIN, data_preset=ccfg.DATA_PRESET,
+                                    is_train=True, device="cpu")
+                batch = probe.to_device(next(iter(batch_iterator(ds, B, views, B))))
+                draws = draw_ref_noise(torch.Generator().manual_seed(5), B)
+                before = _probe_loss(probe, batch, draws)
+                del model0, probe
+                run, got, secs, peak = _drive_cli(train_cli.train, cfg, argv)
+                # as phase 4c: the loss under fixed noise over 3 * steps steps of the batch
+                for _ in range(2 * steps):
+                    run["trainer"].step(batch)
+                after = _probe_loss(run["trainer"], batch, draws)
+                n_blocks = _n_blocks(cfg["MODEL"])
+                mixed = _mixed_batches(cfg["DATASET"]["TEST"], B, views, B)
+                want = {k: steps * v for k, v in variant_launches(name, n_blocks, True).items()}
+                fwd = variant_launches(name, n_blocks, mixed=bool(mixed))
+                _check_launches(f"{name} train CLI", got, {k: want[k] + fwd[k] for k in want})
+                summary = _train_summary(f"{name} train B{B}", run, secs, peak, B, card,
+                                         warmup=1)
+                log(f"  {name}: the batch's loss under fixed noise {before:.5f} -> {after:.5f} "
+                    f"after {3 * steps} steps")
+                if not after < before:
+                    raise AssertionError(f"{name}: the fixed batch's loss under fixed noise did "
+                                         f"not fall: {before} -> {after}")
+                _check_measures(f"{name} validation", run["val"][0])
+                out[name] = dict(summary, batch=B, launches=got, probe=(before, after))
+                launches[name] = got
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+            # the train CLI makes cuDNN deterministic; the phases after time as before
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    results["variant_train"] = out
+    return launches
+
+
+def phase_v1_heads(results, device="cuda", dtype="bf16", batch=2, views=8, hw=32, image=256,
+                   in_channels=128, head_kw=None, tol_m=1e-4):
+    """Phase 9d: the two POEM v1 heads at the JAX defaults (embed 256, 2048 ball
+    points in 0.2 m, 32 depth bins, 6 blocks, K 16) on ``views`` maps of
+    ``hw`` x ``hw``, the second sample with 5 valid views: float32 card vs CPU
+    (launches counted), then the card's bfloat16 forward timed (CUDA events).
+    At these random weights the 6-block decoder amplifies float32 rounding: the
+    CPU against itself, its input features moved by 1e-7 relative, parts by up to
+    ~1e-3 m at block 1 and ~1e-2 m at block 5. So each block's card - CPU
+    difference is held to 5 times that CPU self-difference, and to at least
+    1e-4 m (block 0, which runs the whole head and one decoder block, agrees to
+    ~1e-7 m)."""
+    import copy
+
+    from poem_v2_tpu_torch.mano.layer import ManoLayer
+    from poem_v2_tpu_torch.models.heads import v1_heads
+    from poem_v2_tpu_torch.models.poem import init_parameters
+
+    log("phase 9d: the POEM v1 heads, card vs CPU in float32, bfloat16 timed")
+    card = gpu_line()
+    rs = np.random.RandomState(50)
+    _, intr, extr = look_at_request(rs, batch, views, image)
+    n = np.full(batch, views)
+    n[1:] = min(5, views)
+    mask = np.arange(views)[None, :] < n[:, None]
+    mano = ManoLayer(center_idx=9)
+    m = mano(torch.zeros(1, 48), torch.zeros(1, 10))
+    template = torch.cat([m.joints, m.verts], 1)[0]
+    ref = template[None] + torch.tensor([0.0, 0.0, 0.5]) + torch.from_numpy(
+        rs.randn(batch, 1, 3).astype(np.float32)) * 0.01
+    feat = torch.from_numpy(rs.randn(batch, views, hw, hw, in_channels).astype(np.float32))
+    args = (feat, torch.from_numpy(mask), torch.from_numpy(intr), torch.from_numpy(extr), ref,
+            template, (image, image))
+    kw = dict(in_channels=in_channels, **(head_kw or {}))
+    out, launches = {}, {}
+    for cls in (v1_heads.POEMPositionEmbeddedAggregationHead,
+                v1_heads.POEMProjectiveSelfAggregationHead):
+        head = cls(**kw)
+        init_parameters(head, torch.Generator().manual_seed(0))
+        head.eval()
+        dev_head = copy.deepcopy(head).to(device)
+        dev_args = tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+        with torch.inference_mode():
+            t = time.time()
+            want = head(*args)["all_coords_preds"]
+            cpu_s = time.time() - t
+            reset_launches()
+            got = dev_head(*dev_args)["all_coords_preds"]
+            torch.cuda.synchronize()
+            got_launches = read_launches()
+            _check_launches(cls.__name__, got_launches, _launch_counts(
+                fused_knn_vector_attention=1 + 2 * head.transformer.n_blocks))
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{cls.__name__}: shapes {tuple(got.shape)}, "
+                                     f"{tuple(want.shape)}, finite {bool(torch.isfinite(got).all())}")
+            nudge = 1.0 + 1e-7 * torch.from_numpy(np.random.RandomState(51).randn(
+                *feat.shape).astype(np.float32))
+            self_diff = _set_diffs(head(feat * nudge, *args[1:])["all_coords_preds"], want)
+            diff = _set_diffs(got, want)
+            lim = [max(tol_m, 5 * d) for d in self_diff]
+            log(f"  {cls.__name__}: max |card - cpu| by block " + ", ".join(
+                f"{d:.2e}" for d in diff) + " m; the CPU against itself, input moved by 1e-7: "
+                + ", ".join(f"{d:.2e}" for d in self_diff) + f" m (cpu {cpu_s:.1f} s)")
+            if any(d > lm for d, lm in zip(diff, lim)):
+                raise AssertionError(f"{cls.__name__}: card vs cpu by block {diff} over {lim}")
+            if dtype == "bf16":
+                dev_head.to(torch.bfloat16)
+            ms = time_cuda(lambda: dev_head(*dev_args), iters=5, warmup=1)
+        log(f"  {cls.__name__}: {dtype} forward through K1 {ms:.2f} ms at B{batch} of {views} "
+            f"views [{card}]")
+        out[cls.__name__] = dict(by_block=diff, cpu_self_by_block=self_diff, ms=ms,
+                                 batch=batch, launches=got_launches)
+        launches[cls.__name__] = got_launches
+        del head, dev_head
+    results["v1_heads"] = out
+    return launches
+
+
+def phase_metro(results, device="cuda", dtype="bf16", cfg=None, image=224, batch=2,
+                time_batch=16):
+    """Phase 9e: ``create_metro_model`` (ResNet-50 GN and the default widths unless
+    ``cfg``) in float32 on the card against the CPU (1e-4 of each output's
+    largest), then one ``dtype`` forward at ``time_batch`` timed (CUDA events)."""
+    import copy
+
+    from poem_v2_tpu_torch.models.metro import create_metro_model
+
+    log("phase 9e: METRO, card vs CPU in float32, bfloat16 timed")
+    card = gpu_line()
+    model, _ = create_metro_model(cfg, device="cpu")
+    rs = np.random.RandomState(60)
+    img = torch.from_numpy(rs.uniform(-0.5, 0.5, (batch, image, image, 3)).astype(np.float32))
+    dev = copy.deepcopy(model).to(device)
+    layers = sum(getattr(dev, f"block_{i}").num_layers for i in range(dev.n_blocks))
+    with torch.inference_mode():
+        want = model(img)
+        reset_launches()
+        got = dev(img.to(device))
+        torch.cuda.synchronize()
+        got_launches = read_launches()
+        _check_launches("METRO", got_launches, _launch_counts(dense_cross_attention=layers))
+        errs = {k: compare(f"METRO {k}", got[k], want[k], torch.float32) for k in want}
+        if dtype == "bf16":
+            dev.to(torch.bfloat16)
+        big = torch.from_numpy(rs.uniform(-0.5, 0.5, (time_batch, image, image, 3))
+                               .astype(np.float32)).to(device)
+        ms = time_cuda(lambda: dev(big), iters=5, warmup=2)
+    log(f"  METRO {dtype} forward at B{time_batch} of {image} px: {ms:.2f} ms [{card}]")
+    results["metro"] = dict(max_abs_err=errs, ms=ms, batch=time_batch, launches=got_launches)
+    del model, dev
+    return got_launches
+
+
+def phase_metro_k3_times(results, B=2, M=799 + 4096, Hs=(1024, 256, 64), device="cuda"):
+    """Phase 9f: K3 at the METRO stage's self-attention shapes, bfloat16, from a CUDA
+    graph, beside ``F.scaled_dot_product_attention`` on the same heads and the bound."""
+    log("phase 9f: K3 at the METRO stage's shapes from a CUDA graph, beside SDPA")
+    card = gpu_line()
+    rs = np.random.RandomState(70)
+    out = {}
+    for H in Hs:
+        q, k, v = (torch.from_numpy(rs.randn(B, M, H).astype(np.float32)).to(
+            device, torch.bfloat16) for _ in range(3))
+        kw = dict(num_heads=4, sm_scale=1 / math.sqrt(H // 4))
+        ms = time_graph(lambda: cross_attn.dense_cross_attention(q, k, v, **kw))
+        sdpa_ms = time_graph(library_sdpa((q, k, v), kw))
+        b_ms, b_by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * B * M * M * H,
+                              torch.bfloat16)
+        log(f"  K3 B{B} M=N={M} head dim {H // 4}: graph {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}): {100 * b_ms / ms:.1f}% of it [{card}]")
+        out[f"hd{H // 4}"] = dict(graph_ms=ms, sdpa_graph_ms=sdpa_ms, bound_ms=b_ms,
+                                  bound_by=b_by, batch=B, tokens=M)
+    results["metro_k3"] = out
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:

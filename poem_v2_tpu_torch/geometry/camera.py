@@ -9,6 +9,12 @@ from __future__ import annotations
 import torch
 
 
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The logit of x clamped to [0, 1], each side of the ratio floored at ``eps``."""
+    x = x.clamp(0.0, 1.0)
+    return torch.log(x.clamp_min(eps) / (1.0 - x).clamp_min(eps))
+
+
 def cam_extr_transf(extr: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Rigid transform(s) (..., 4, 4) applied to points (..., N, 3) -> (..., N, 3)."""
     rot = extr[..., :3, :3]

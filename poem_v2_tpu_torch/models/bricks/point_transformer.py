@@ -141,8 +141,10 @@ class PtCrossAttnBlock(_VectorAttention):
     """Vector cross-attention of queries over their K nearest cloud points (or the anchors)."""
 
     def __init__(self, d_points: int, d_model: int, k: int, use_fused: bool = False,
-                 use_fused_knn: bool = True, use_fused_knn_train: bool = True):
-        super().__init__(d_points, d_model, k, fc1_in=d_model, qs_in=d_points,
+                 use_fused_knn: bool = True, use_fused_knn_train: bool = True,
+                 d_cloud: Optional[int] = None):
+        # d_cloud: the cloud features' width (default d_model), fc1's input
+        super().__init__(d_points, d_model, k, fc1_in=d_cloud or d_model, qs_in=d_points,
                          use_fused=use_fused, use_fused_knn=use_fused_knn,
                          use_fused_knn_train=use_fused_knn_train)
 

@@ -1,5 +1,5 @@
 """POEM generalized head
-(counterpart of ``poem_v2_tpu/models/heads/ptemb_head.py``; no PETR, no v3 decoder).
+(counterpart of ``poem_v2_tpu/models/heads/ptemb_head.py``).
 
 The 4096-point BPS cloud around reference joint 9 is projected into every
 view, sampled from the positional-encoded feature maps (kernel K4 in eval;
@@ -9,7 +9,10 @@ the reference's ``.view(1, -1, V, C)`` scramble (a reshape when every sample
 has all its views; else kernel K5 in eval and the plain row gather in
 training), merged across views, and decoded by the point-embedded decoder.
 With ``parametric_output`` the final block's coordinates are replaced by
-the MANO surface of the regressed pose and shape.
+the MANO surface of the regressed pose and shape. ``decoder_type``
+"PtEmbedTRv3" decodes with the METRO + point-transformer decoder instead
+(``models/decoder_v3.py``; no parametric output), and ``petr_embedding``
+adds the camera-frustum embedding (``models/frustum.py``) onto the sine one.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ...ops.sampling import grid_sample_points_matmul, pixel_to_grid
 from ...ops.scramble import plain_scrambled_merge_gather, scrambled_merge_gather
 from ..bricks.attention import MLP
 from ..decoder import PtEmbedDecoder
+from ..frustum import FrustumPositionEncoder
 from ..positional import sine_positional_encoding_3d_factors
 
 
@@ -116,20 +120,43 @@ class POEMGeneralizedHead(nn.Module):
                  anchor_xyz: Optional[np.ndarray] = None,
                  n_blocks: int = 3, num_heads: int = 4, n_neighbor: int = 32,
                  n_neighbor_query: int = 32, dropout: float = 0.1,
-                 parametric_output: bool = False, mano_layer=None, use_flash_train: bool = True):
+                 parametric_output: bool = False, mano_layer=None, use_flash_train: bool = True,
+                 petr_embedding: bool = False, depth_num: int = 32, depth_start: float = 0.0,
+                 depth_end: float = 1.2, lid: bool = False,
+                 position_range: Tuple[float, ...] = (-0.6, -0.6, 0.0, 0.6, 0.6, 1.2),
+                 decoder_type: str = "PtEmbedTR"):
         super().__init__()
         if parametric_output and mano_layer is None:
             raise ValueError("parametric_output needs the MANO layer")
+        if decoder_type not in ("PtEmbedTR", "PtEmbedTRv3"):
+            raise ValueError(f"unknown decoder_type {decoder_type!r}")
+        if decoder_type == "PtEmbedTRv3" and parametric_output:
+            raise ValueError("PtEmbedTRv3 has no parametric (MANO) output branch")
+        self.decoder_type = decoder_type
         self.parametric_output, self.mano_layer = parametric_output, mano_layer
         self.embed_dims, self.nsample, self.radius = embed_dims, nsample, radius
         self.pe_num_feats, self.center_idx = pe_num_feats, center_idx
         self.input_proj = nn.Conv2d(in_channels, embed_dims, 1)
         self.adapt_pos3d = AdaptPos3D(embed_dims, pe_num_feats)
         self.merge_feature = MergeFeaturesMV(embed_dims)
+        if petr_embedding:
+            # the ptEmb position_encoder hides at embed_dims * 2
+            self.position_encoder = FrustumPositionEncoder(
+                embed_dims, depth_num, depth_start, depth_end, lid, position_range, hidden_mult=2)
+        self.petr_embedding = petr_embedding
         self.query_feat_embedding = nn.Parameter(torch.empty(num_query, pt_feat_dim))
-        self.transformer = PtEmbedDecoder(n_blocks, pt_feat_dim, num_heads, n_neighbor,
-                                          n_neighbor_query, dropout, parametric_output,
-                                          num_query, use_flash_train)
+        if decoder_type == "PtEmbedTRv3":
+            from ..decoder_v3 import PtEmbedTRv3  # local: that module imports this one
+
+            self.transformer = PtEmbedTRv3(
+                feat_dim=pt_feat_dim, pt_n_blocks=n_blocks, pt_n_neighbor=n_neighbor,
+                pt_n_neighbor_query=n_neighbor_query, dropout=dropout,
+                max_positions=num_query + nsample, map_dim=embed_dims,
+                use_fused_knn_train=use_flash_train)
+        else:
+            self.transformer = PtEmbedDecoder(n_blocks, pt_feat_dim, num_heads, n_neighbor,
+                                              n_neighbor_query, dropout, parametric_output,
+                                              num_query, use_flash_train)
         # float32 geometry constants, kept out of the state dict and of dtype casts
         self._np_consts = {
             "bps": np.asarray(bps_basis, np.float32),
@@ -151,8 +178,9 @@ class POEMGeneralizedHead(nn.Module):
                 cam_extr: torch.Tensor, ref_joints: torch.Tensor,
                 inp_res: Tuple[int, int] = (256, 256)) -> Dict[str, torch.Tensor]:
         """mlvl_feat (B, V, H, W, C_in) channels-last -> {"all_coords_preds":
-        (n_blocks, B, 799, 3)}, with ``parametric_output`` also "pred_pose"
-        (B, 16, 3) axis-angle and "pred_shape" (B, 10)."""
+        (n_blocks, B, 799, 3), with PtEmbedTRv3 (1 + n_blocks, B, 799, 3)}, with
+        ``parametric_output`` also "pred_pose" (B, 16, 3) axis-angle and
+        "pred_shape" (B, 10)."""
         B, V, H, W, _ = mlvl_feat.shape
         C, NS = self.embed_dims, self.nsample
         c = self.consts(mlvl_feat.device)
@@ -160,8 +188,11 @@ class POEMGeneralizedHead(nn.Module):
 
         w = self.input_proj.weight[:, :, 0, 0]
         x = torch.nn.functional.linear(mlvl_feat.to(dt), w, self.input_proj.bias)
-        x = x + self.adapt_pos3d(*sine_positional_encoding_3d_factors(
+        sin = self.adapt_pos3d(*sine_positional_encoding_3d_factors(
             view_mask, H, W, num_feats=self.pe_num_feats))
+        if self.petr_embedding:
+            sin = sin + self.position_encoder(cam_intr, cam_extr, (H, W), inp_res)[0]
+        x = x + sin
 
         ref_center = ref_joints[:, self.center_idx].float()
         bps_world = c["bps"][None] + ref_center[:, None]
@@ -181,6 +212,11 @@ class POEMGeneralizedHead(nn.Module):
         query_feat = self.query_feat_embedding[None].expand(B, -1, -1)
         pt_xyz = (c["bps"] / self.radius)[None].expand(B, NS, 3)
         query_xyz = (c["template"] / self.radius)[None].expand(B, -1, 3)
+        if self.decoder_type == "PtEmbedTRv3":
+            coords = self.transformer(pt_xyz, merged, query_xyz, query_feat, x, view_mask,
+                                      cam_intr, cam_extr, ref_center, self.radius, inp_res)
+            coords = torch.nan_to_num(coords.float())
+            return {"all_coords_preds": coords * self.radius + ref_center[None, :, None, :]}
         coords, pose6d, shape = self.transformer(
             query_xyz, query_feat, pt_xyz, merged, c["q_anchor_idx"], c["pt_anchor_idx"],
             c.get("anchor_xyz"))

@@ -8,7 +8,9 @@ images (B, V, H, W, 3) with a (B, V) view mask
      the caller passes (:func:`draw_ref_noise`)
   -> POEM generalized head -> per-block 799-point coordinates (with
      ``PARAMETRIC_OUTPUT`` the last block's are the MANO surface of the
-     regressed ``pred_pose`` / ``pred_shape``).
+     regressed ``pred_pose`` / ``pred_shape``; with ``HEAD.TRANSFORMER.TYPE:
+     PtEmbedTRv3`` the METRO stage's coarse mesh, then each refinement; with
+     ``HEAD.PETR_EMBEDDING`` the frustum embedding joins the sine one).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -175,19 +178,23 @@ def load_static_assets(head_cfg: dict, nsample: int, radius: float, num_query: i
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``: N(0, 0.02) for the BERT attention /
-    FFN dense layers and the query embedding (the flax initialisers), other
+    FFN dense layers (METRO's too), the query embedding and METRO's position
+    embeddings, U(0, 1) for the v1 heads' reference embedding (the flax
+    initialisers), other
     matrices at half the lecun-normal scale, zero biases, unit norm scales,
     running statistics 0 / 1. At the full lecun scale the merge's cubic
     product sends the decoded points metres away from the hand, where
     neighbour distances all but tie; half keeps them within centimetres."""
-    bert = (".attn.", ".cross_attn.", ".ffn.")
+    bert = re.compile(r"\.(attn|cross_attn|ffn|layer\d+_attn|layer\d+_ffn)\.")
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if p.dim() == 1:
                 ones = leaf in ("weight", "running_var")  # scales; FrozenBatchNorm's variance
                 val = torch.ones(p.shape) if ones else torch.zeros(p.shape)
-            elif leaf == "query_feat_embedding" or any(b in name for b in bert):
+            elif leaf == "reference_embed":
+                val = torch.rand(p.shape, generator=generator)
+            elif leaf in ("query_feat_embedding", "position_embeddings") or bert.search(name):
                 val = torch.randn(p.shape, generator=generator) * 0.02
             else:
                 # torch layouts are (out, in, ...); raw kernels and MLP params are (in, out)
@@ -231,10 +238,6 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
     bb_type = bb_cfg["TYPE"]
     if not (bb_type == "HRNet" or bb_type.lower().startswith("resnet")):
         raise ValueError(f"Unsupported backbone {bb_type!r} for POEM")
-    if tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3":
-        raise NotImplementedError("the PtEmbedTRv3 decoder is not ported yet")
-    if head_cfg.get("PETR_EMBEDDING", False):
-        raise NotImplementedError("the PETR frustum embedding is not ported yet")
     norm = bb_cfg.get("NORM", "gn")
     nsample, radius = head_cfg["N_SAMPLE"], head_cfg["RADIUS_SAMPLE"]
     center = tr_cfg.get("TRANSFORMER_CENTER_IDX", 9)
@@ -275,7 +278,15 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
                 n_blocks=tr_cfg["N_BLOCKS"], num_heads=tr_cfg["NUM_ATTENTION_HEADS"],
                 n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"],
                 dropout=tr_cfg.get("DROPOUT", 0.1), parametric_output=parametric,
-                mano_layer=mano_layer if parametric else None, use_flash_train=use_flash_train),
+                mano_layer=mano_layer if parametric else None, use_flash_train=use_flash_train,
+                petr_embedding=bool(head_cfg.get("PETR_EMBEDDING", False)),
+                depth_num=head_cfg.get("DEPTH_NUM", 32),
+                depth_start=head_cfg.get("DEPTH_START", 0.0),
+                depth_end=head_cfg.get("DEPTH_END", 1.2), lid=head_cfg.get("LID", False),
+                position_range=tuple(head_cfg.get("POSITION_RANGE",
+                                                  (-0.6, -0.6, 0.0, 0.6, 0.6, 1.2))),
+                decoder_type=("PtEmbedTRv3" if tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3"
+                              else "PtEmbedTR")),
             num_joints=cfg.get("DATA_PRESET", {}).get("NUM_JOINTS", 21),
             center_idx=cfg.get("DATA_PRESET", {}).get("CENTER_IDX", 0),
             ref_noise=float(cfg.get("REF_NOISE", 0.01)),

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,35 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, k: int
     dist, idx = torch.sort(d2, dim=-1, stable=True)
     idx = idx[..., :k]
     return dist[..., :k], idx, index_points(points, idx)
+
+
+def ball_query(center: torch.Tensor, points: torch.Tensor, k: int, radius: float,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``k`` points within ``radius`` of each centre: center (B, M, 3), points
+    (B, N, 3) -> (idx (B, M, k) int64, xyz (B, M, k, 3)). Past the hits the index
+    is -1 and the xyz 0 (pytorch3d's contract).
+
+    Without a ``generator`` the hits are the nearest k in the ball, ties to the
+    lowest index. With one, each (centre, point) pair draws a uniform priority
+    from it and the k in-ball points of highest priority are taken: random
+    points of the ball, as the reference's permuted cloud gives. The JAX
+    function draws its priorities from a threefry key, a stream this one does
+    not reproduce, so the two agree in distribution only."""
+    d2 = square_distance(center, points)
+    in_ball = d2 <= radius * radius
+    if generator is None:
+        score = torch.where(in_ball, d2, torch.full_like(d2, float("inf")))
+        top, idx = torch.sort(score, dim=-1, stable=True)
+    else:
+        prio = torch.rand(d2.shape, generator=generator, device=generator.device).to(d2.device)
+        score = torch.where(in_ball, prio, torch.full_like(prio, -float("inf")))
+        top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :k], idx[..., :k]
+    valid = torch.isfinite(top)
+    idx = torch.where(valid, idx, torch.full_like(idx, -1))
+    xyz = torch.where(valid[..., None], index_points(points, idx.clamp_min(0)), 0.0)
+    return idx, xyz
 
 
 def farthest_point_sampling(points: torch.Tensor, k: int, start_idx: int = 0

@@ -1,9 +1,11 @@
-"""Bilinear point sampling for training, and grid helpers
+"""Bilinear point sampling for training and the other heads, and grid helpers
 (counterpart of ``poem_v2_tpu/ops/sampling.py``).
 
-The eval sampler is kernel K4 (:mod:`.bilinear`), which has no backward.
-Training samples with :func:`grid_sample_points_matmul`, as the JAX head
-does (``ptemb_head.py:239-242``).
+The POEM head's eval sampler is kernel K4 (:mod:`.bilinear`), which has no
+backward. Training samples with :func:`grid_sample_points_matmul`, as the JAX
+head does (``ptemb_head.py:239-242``), and so does the PtEmbedTRv3 decoder's
+coarse-mesh sampler. The v1 heads take :func:`grid_sample_points`, the JAX
+package's 4-tap gather (XLA there, plain PyTorch here).
 """
 
 from __future__ import annotations
@@ -44,6 +46,34 @@ def grid_sample_points_matmul(feat: torch.Tensor, coords: torch.Tensor) -> torch
             weight = weight + match.to(wdt) * w[..., None]
     with torch.autocast(feat.device.type, enabled=False):
         return torch.bmm(weight, feat.reshape(B, H * W, C))
+
+
+def grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of ``feat`` (B, H, W, C) at ``coords`` (B, N, 2) in [-1, 1]
+    (x over the width, then y; ``align_corners=False``, zero outside) as four
+    row gathers; (B, N, C). The tap positions are computed in ``coords``' dtype
+    and the weights in ``feat``'s, as the JAX function computes them."""
+    B, H, W, C = feat.shape
+    x, y = coords[..., 0], coords[..., 1]
+    ix = ((x + 1.0) * W - 1.0) * 0.5
+    iy = ((y + 1.0) * H - 1.0) * 0.5
+    ix0, iy0 = torch.floor(ix), torch.floor(iy)
+    fx, fy = ix - ix0, iy - iy0
+    flat = feat.reshape(B, H * W, C)
+
+    def gather(px, py):
+        inside = (px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
+        idx = py.clamp(0, H - 1).to(torch.int64) * W + px.clamp(0, W - 1).to(torch.int64)
+        vals = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))
+        return vals * inside[..., None].to(feat.dtype)
+
+    v00, v01 = gather(ix0, iy0), gather(ix0 + 1, iy0)
+    v10, v11 = gather(ix0, iy0 + 1), gather(ix0 + 1, iy0 + 1)
+    fx = fx[..., None].to(feat.dtype)
+    fy = fy[..., None].to(feat.dtype)
+    top = v00 * (1 - fx) + v01 * fx
+    bottom = v10 * (1 - fx) + v11 * fx
+    return top * (1 - fy) + bottom * fy
 
 
 def pixel_to_grid(uv: torch.Tensor, inp_res) -> torch.Tensor:

@@ -114,7 +114,8 @@ class Predictor:
         if pad < 0:
             raise ValueError(f"got {V} views > bucket {self.view_bucket}")
         if pad:
-            images = np.concatenate([images, np.zeros_like(images[:, :pad])], axis=1)
+            images = np.concatenate([images, np.zeros((B, pad) + images.shape[2:], images.dtype)],
+                                    axis=1)
             view_mask = np.concatenate([view_mask, np.zeros((B, pad), bool)], axis=1)
             eye3 = np.broadcast_to(np.eye(3, dtype=np.float32) * 100, (B, pad, 3, 3))
             eye4 = np.broadcast_to(np.eye(4, dtype=np.float32), (B, pad, 4, 4))

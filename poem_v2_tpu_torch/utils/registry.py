@@ -1,5 +1,6 @@
 """Component registries (counterpart of ``poem_v2_tpu/utils/registry.py``), as far
-as the data layer needs them: ``TRANSFORM`` and ``DATASET``.
+as the port needs them: the data layer's ``TRANSFORM`` and ``DATASET``, and
+``MODEL`` (METRO).
 
 ``build_from_cfg`` keeps the JAX package's contract: look ``cfg.TYPE`` up, merge
 the extra keyword arguments (upper-cased) into a clone of ``cfg`` and call the
@@ -60,6 +61,7 @@ def build_from_cfg(cfg: Config, registry: Registry, **kwargs: Any):
 
 DATASET = Registry("dataset")
 TRANSFORM = Registry("transform")
+MODEL = Registry("model")
 
 
 def build_transform(cfg: Config, **kwargs):

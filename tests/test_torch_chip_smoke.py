@@ -403,3 +403,66 @@ def test_phase_8_rehearsal(on_cpu, one_thread, monkeypatch):
     assert out["gate_mano_800"]["steps"] == 1 and set(out["warmup"]) == {1, 2}
     assert out["launches"] == zeros and results["drawing"] is out
     json.dumps({"drawing": out}, default=float)
+
+
+def test_phase_9_rehearsal(on_cpu, one_thread, monkeypatch):
+    """Phase 1f and phase 9 on the CPU at small sizes (PtEmbedTRv3's METRO stage
+    too: ``small_metro_stage``): the PtEmbedTRv3 shapes' kernel cases, both head
+    options' parity, serving, train CLI runs, the v1 heads, METRO and the
+    METRO-stage K3 timing; the launch counts each path must show on the card
+    (none runs a kernel on the CPU)."""
+    from torch_port_helpers import small_metro_stage, tiny_cfg
+
+    small_metro_stage(monkeypatch)
+
+    checked = {}
+    monkeypatch.setattr(chip_smoke, "_check_launches",
+                        lambda name, got, want: checked.__setitem__(name, (got, want)))
+    results = {}
+    chip_smoke.phase_variant_kernels(results, B=1, M=40, Hs=(64, 32), N=48, K=4, D=32)
+    assert {c for c in results if c.startswith("v3/")} == {
+        "v3/dense_cross_attention/hd16_M40", "v3/dense_cross_attention/hd8_M40",
+        "v3/fused_knn_vector_attention/self_N48_K4"}
+    cfg = tiny_cfg().to_dict()
+    small = dict(device="cpu", model_cfg=cfg, image=64, views=3)
+    chip_smoke.phase_variant_parity(results, **small, part_views=2)
+    assert set(results["variant_parity"]) == {"v3/B1/K1", "v3/B2/K1", "v3/B2/gathered",
+                                              "petr/B1/K1", "petr/B2/K1"}
+    serving = chip_smoke.phase_variant_serving(results, dtype="fp32", buckets=(1,),
+                                               mixed_batch=2, **small)
+    train = chip_smoke.phase_variant_train(results, dtype="fp32", batches=(("v3", 2),
+                                                                           ("petr", 2)),
+                                           steps=2, **small)
+    heads = chip_smoke.phase_v1_heads(results, device="cpu", dtype="fp32", batch=2, views=3,
+                                      hw=8, image=64, in_channels=16, head_kw=dict(
+                                          embed_dims=32, pt_feat_dim=32, nsample=64,
+                                          depth_num=8, pe_num_feats=8, n_blocks=2,
+                                          n_neighbor=4, n_neighbor_query=4, radius=0.2))
+    metro = chip_smoke.phase_metro(results, device="cpu", dtype="fp32", cfg={
+        "BACKBONE": {"TYPE": "resnet18", "NORM": "gn"}, "INPUT_FEAT_DIM": [515, 32, 16],
+        "HIDDEN_FEAT_DIM": [64, 32, 16]}, image=64, batch=1, time_batch=2)
+    chip_smoke.phase_metro_k3_times(results, B=1, M=40, Hs=(64,), device="cpu")
+    zeros = {k: 0 for k in chip_smoke.KERNELS}
+    assert all(got == zeros for got, _ in checked.values())
+    assert serving == {"v3": zeros, "petr": zeros} and train == {"v3": zeros, "petr": zeros}
+    assert set(heads) == {"POEMPositionEmbeddedAggregationHead",
+                          "POEMProjectiveSelfAggregationHead"} and metro == zeros
+    # the tiny model's 2 blocks: v3 a forward K3 12, K1 5, K4 1; a train step K6 5
+    want = checked["v3 B1 forward"][1]
+    assert {k: v for k, v in want.items() if v} == {
+        "dense_cross_attention": 12, "fused_knn_vector_attention": 5,
+        "grid_sample_points_fused": 1}
+    assert checked["petr mixed B2 forward"][1]["scrambled_merge_gather"] == 1
+    want = checked["v3 train CLI"][1]
+    assert want["knn_vector_attention_trainable"] == 2 * 5 and want["dense_cross_attention"] == 12
+    assert want["dense_cross_attention_bwd"] == 0
+    want = checked["petr train CLI"][1]
+    assert want["dense_cross_attention_bwd"] == 2 * 4 and want["fused_anchor_vector_attention"] == 2
+    assert checked["METRO"][1]["dense_cross_attention"] == 12  # 3 blocks of 4 layers
+    assert checked["POEMProjectiveSelfAggregationHead"][1]["fused_knn_vector_attention"] == 5
+    for name in ("v3", "petr"):
+        t = results["variant_train"][name]
+        assert t["steps"] == 2 and t["probe"][1] < t["probe"][0]
+    json.dumps({"variants": {k: results[k] for k in (
+        "variant_parity", "variant_serving", "variant_train", "v1_heads", "metro",
+        "metro_k3")}}, default=float)

@@ -92,21 +92,25 @@ def test_create_poem_model_targets_the_card():
 
 @pytest.mark.parametrize("cfg_change", [{"TYPE": "PtEmbedTRv3"}, {"PETR": True},
                                         {"BACKBONE": "resnet18"}])
-def test_unported_variants_still_raise(cfg_change):
-    """PtEmbedTRv3 and the PETR embedding raise; the ResNet backbones, ported
-    since, build (tests/test_torch_resnet.py holds them against JAX)."""
+def test_head_variants_and_resnet_build(cfg_change):
+    """The PtEmbedTRv3 decoder, the PETR embedding and the ResNet backbones build
+    (tests/test_torch_poem_variants.py and tests/test_torch_resnet.py hold them
+    against JAX)."""
     cfg = tiny_cfg()
     if "TYPE" in cfg_change:
         cfg.HEAD.TRANSFORMER.TYPE = cfg_change["TYPE"]
+        model, _ = torch_create(cfg, device="cpu")
+        assert type(model.head.transformer).__name__ == "PtEmbedTRv3"
+        assert model.head.transformer.point_transformer.n_blocks == 2
     elif "PETR" in cfg_change:
         cfg.HEAD.PETR_EMBEDDING = True
+        model, _ = torch_create(cfg, device="cpu")
+        assert type(model.head.position_encoder).__name__ == "FrustumPositionEncoder"
+        assert type(model.head.transformer).__name__ == "PtEmbedDecoder"
     else:
         cfg.BACKBONE.TYPE = cfg_change["BACKBONE"]
         model, _ = torch_create(cfg, device="cpu")
         assert type(model.backbone).__name__ == "ResNet" and model.backbone.arch == "resnet18"
-        return
-    with pytest.raises(NotImplementedError):
-        torch_create(cfg, device="cpu")
 
 
 # ---- K5: the scramble ---------------------------------------------------------

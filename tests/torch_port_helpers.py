@@ -140,3 +140,27 @@ def look_at_cameras(rs: np.random.RandomState, B: int, V: int, image_size: int,
             f = image_size * (1.2 + 0.1 * rs.rand())
             intr[b, v] = [[f, 0, image_size / 2], [0, f, image_size / 2], [0, 0, 1]]
     return intr, extr
+
+
+def small_metro_stage(monkeypatch):
+    """Make the heads of both packages build PtEmbedTRv3 with a small METRO stage
+    (hidden 64 / 32, outputs 32 / 3, one layer a block: tests/test_baselines.py's
+    sizes) in place of the full one (1024 / 256 / 64 hidden, 4 layers a block),
+    whose FFNs over 799 + N_SAMPLE tokens dominate a tiny model's CPU time. The
+    full stage is held on the card by chip_smoke.py."""
+    import poem_v2_tpu.models.decoder_v3 as jax_v3
+    import poem_v2_tpu_torch.models.decoder_v3 as torch_v3
+
+    small = dict(vt_hidden_dims=(64, 32), vt_output_dims=(32, 3), vt_num_layers=1)
+
+    class JaxSmall(jax_v3.PtEmbedTRv3):
+        vt_hidden_dims: tuple = small["vt_hidden_dims"]
+        vt_output_dims: tuple = small["vt_output_dims"]
+        vt_num_layers: int = small["vt_num_layers"]
+
+    class TorchSmall(torch_v3.PtEmbedTRv3):
+        def __init__(self, **kw):
+            super().__init__(**{**small, **kw})
+
+    monkeypatch.setattr(jax_v3, "PtEmbedTRv3", JaxSmall)
+    monkeypatch.setattr(torch_v3, "PtEmbedTRv3", TorchSmall)
