@@ -177,17 +177,31 @@ non-zero:
    its input, and the bf16 forward timed; (e) ``create_metro_model`` float32 card against CPU and a bf16
    forward at B16 timed; (f) K3 at the METRO stage's shapes from a CUDA graph
    beside ``F.scaled_dot_product_attention``.
+10. the multi-view baselines at the JAX defaults (``configs.BASELINES``: ResNet-34
+   GN, embed 256, 6 layers, 256 px, 8 views): PETR, PETR with ``PETRHeadFTL`` and
+   MVP, whose paths launch none of K1-K10 (masked einsum attention, the 4-tap
+   gather, as in JAX; counted and recorded as ``baseline_launches``, not
+   asserted, with 10d's METRO forwards, which run K3): (a) float32 card against the port's CPU forward at B2 of 8 and 5
+   valid views, each level's coordinates within 5 times the CPU's own spread
+   under a 1e-7 nudge of the images and at least 1e-6 m; (b) PETR's and MVP's
+   weights under the reference's names through ``convert_reference.py`` and
+   through ``convert.py`` from their flax layout: card forwards bit-identical to
+   the source's; (c) bf16 autocast forwards at B1 / B4 / B16 of 8 views and a
+   mixed 2-8-view B4 (CUDA events, median of 3), peak GiB, one training forward +
+   backward at B4 with dropout, its time and peak; (d) METRO's weights through
+   ``convert_metro_network`` and back, forward bit-identical.
 
 The lines before the kernels line are JSON objects ``{"data": ...}`` with phase
-7's readings, ``{"drawing": ...}`` with phase 8's and ``{"variants": ...}`` with
-phase 9's. The second-to-last line is a JSON object with one entry per kernel (``ms``
+7's readings, ``{"drawing": ...}`` with phase 8's, ``{"variants": ...}`` with
+phase 9's and ``{"baselines": ...}`` with phase 10's. The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
 K9's also their selections' times from phase 1e under ``selection``; K3's and
 K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
 on phase 5's paths under ``front_door_launches``, on phase 7's under
 ``data_launches``, on phase 8's under ``viz_launches``, on phase 9's under
-``variant_launches``; K3's and K1's phase 1f cases under ``v3_shapes``, K3's
-phase 9f graph times under ``metro_stage_graph``); the last
+``variant_launches``, on phase 10's under ``baseline_launches``; K3's and K1's
+phase 1f cases under ``v3_shapes``, K3's phase 9f graph times under
+``metro_stage_graph``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
 without a CUDA device it fails before printing any result.
 """
@@ -1583,6 +1597,14 @@ def main() -> int:
     heads_v1 = phase_v1_heads(results)
     metro = phase_metro(results)
     phase_metro_k3_times(results)
+    # phase 10: the multi-view baselines, which launch none of the kernels (their
+    # attention is masked einsum and their gather the 4-tap one, as in JAX); 10d's two
+    # METRO forwards run K3 in its 12 BERT layers each, as phase 9e's
+    baseline_paths = {
+        **{f"parity/{k}": v for k, v in phase_baseline_parity(results).items()},
+        **{f"reference/{k}": v for k, v in phase_baseline_reference(results).items()},
+        **{f"bf16/{k}": v for k, v in phase_baseline_times(results).items()},
+        "metro_reference": phase_metro_reference(results)}
     # phase 9's paths, each counted around its own run
     variant_paths = {**{f"{k}_serving": v for k, v in serving_v.items()},
                      **{f"{k}_train": v for k, v in train_v.items()},
@@ -1664,6 +1686,10 @@ def main() -> int:
         # phase 9's: the two head options served (3 requests a bucket and the mixed
         # one) and trained (steps and a validation), the v1 heads' forward, METRO's
         e["variant_launches"] = {path: n[e["name"]] for path, n in variant_paths.items()}
+        # phase 10's: the baselines' card forwards (10a, 10b), their bf16 forwards and
+        # training forward + backward (10c), all 0, and METRO's converter check (10d: K3
+        # 24); recorded, not asserted
+        e["baseline_launches"] = {path: n[e["name"]] for path, n in baseline_paths.items()}
     # K3 and K1 at the shapes only the PtEmbedTRv3 decoder gives them (phases 1f, 9f)
     for name in ("dense_cross_attention", "fused_knn_vector_attention"):
         by_name[name]["v3_shapes"] = {
@@ -1688,6 +1714,9 @@ def main() -> int:
     print(json.dumps({"drawing": drawing}, default=float), flush=True)
     print(json.dumps({"variants": {k: results[k] for k in (
         "variant_parity", "variant_serving", "variant_train", "v1_heads", "metro", "metro_k3")}},
+        default=float), flush=True)
+    print(json.dumps({"baselines": {k: results[k] for k in (
+        "baseline_parity", "baseline_reference", "baseline_times", "metro_reference")}},
         default=float), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4267,6 +4296,279 @@ def phase_metro_k3_times(results, B=2, M=799 + 4096, Hs=(1024, 256, 64), device=
         out[f"hd{H // 4}"] = dict(graph_ms=ms, sdpa_graph_ms=sdpa_ms, bound_ms=b_ms,
                                   bound_by=b_by, batch=B, tokens=M)
     results["metro_k3"] = out
+
+
+# phase 10: the multi-view baselines (models/petr.py, models/mvp.py) at the JAX
+# defaults (configs.BASELINES); PETR with its FTL head is PETR's model with
+# PETRHeadFTL built directly, as the JAX factory builds PETRHead whatever HEAD.TYPE says
+BASELINE_NAMES = ("petr", "petr_ftl", "mvp")
+# card vs CPU in float32, each level of ``all_coords_preds``: within 5 times the
+# CPU's own spread under a 1e-7 relative nudge of the input images (phase 9d's rule
+# for the v1 heads), and never under 1e-6 m, 8 float32 ulps at 1 m (the first
+# H100 run: spreads 1.2e-7 to 3.0e-7 m, card - CPU 1.2e-7 to 4.2e-7 m)
+BASELINE_SPREAD_FACTOR = 5.0
+BASELINE_FLOOR_M = 1e-6
+
+
+def baseline_model(name, cfgs=None, dtype=torch.float32, device="cuda", param_dtype=None):
+    """One of the phase-10 models, weights from seed 0 (the FTL head from seed 1)."""
+    from poem_v2_tpu_torch.configs import BASELINES
+    from poem_v2_tpu_torch.models import mvp, petr
+    from poem_v2_tpu_torch.models.poem import init_parameters
+
+    cfgs = cfgs or BASELINES
+    if name == "mvp":
+        return mvp.create_mvp_model(cfgs["MVP"], dtype=dtype, device=device,
+                                    param_dtype=param_dtype)[0]
+    model, _ = petr.create_petr_model(cfgs["PETR"], dtype=dtype, device="cpu",
+                                      param_dtype=param_dtype)
+    if name == "petr_ftl":
+        head = petr.PETRHeadFTL(**petr.petr_head_kwargs(cfgs["PETR"]["HEAD"],
+                                                        model.backbone.feat_size[1]))
+        init_parameters(head, torch.Generator().manual_seed(1))
+        model.head = head.to(param_dtype or dtype)
+    return model.to(device).eval()
+
+
+def _baseline_request(rs, B, V, image, n_views=None, device="cpu"):
+    return tuple(t.to(device) for t in _request_tensors(rs, B, V, image, n_views))
+
+
+def phase_baseline_parity(results, device="cuda", cfgs=None, image=256, views=8, part_views=5,
+                          batch=2):
+    """Phase 10a: PETR, PETR-FTL and MVP in float32, TF32 off, on the card against
+    the port's CPU forward with the same weights, B``batch`` with all and
+    ``part_views`` valid views (padded to ``views``): max |card - CPU| of each
+    level's coordinates (metres) held to 5 times the CPU's own spread under a 1e-7
+    nudge of the images, at least 1e-6 m. Returns each model's launches."""
+    import copy
+
+    log("phase 10a: PETR, PETR-FTL and MVP, card vs CPU in float32")
+    rs = np.random.RandomState(80)
+    n = [views] + [part_views] * (batch - 1)
+    args = _baseline_request(rs, batch, views, image, n)
+    nudge = 1.0 + 1e-7 * torch.from_numpy(np.random.RandomState(81).randn(
+        *args[0].shape).astype(np.float32))
+    out, launches = {}, {}
+    for name in BASELINE_NAMES:
+        model = baseline_model(name, cfgs, device="cpu")
+        dev_model = copy.deepcopy(model).to(device)
+        with torch.inference_mode():
+            t = time.time()
+            want = model(*args)["all_coords_preds"]
+            cpu_s = time.time() - t
+            self_diff = _set_diffs(model(args[0] * nudge, *args[1:])["all_coords_preds"], want)
+            reset_launches()
+            got = dev_model(*(a.to(device) for a in args))["all_coords_preds"]
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: shapes {tuple(got.shape)}, {tuple(want.shape)}, "
+                                 f"finite {bool(torch.isfinite(got).all())}")
+        diff = _set_diffs(got, want)
+        lim = [max(BASELINE_FLOOR_M, BASELINE_SPREAD_FACTOR * d) for d in self_diff]
+        log(f"  {name}: max |card - cpu| by level " + ", ".join(f"{d:.2e}" for d in diff)
+            + " m; the CPU against itself, images moved by 1e-7: "
+            + ", ".join(f"{d:.2e}" for d in self_diff) + f" m (cpu {cpu_s:.1f} s); launches "
+            + (", ".join(f"{k} {v}" for k, v in launches[name].items() if v) or "none"))
+        if any(d > lm for d, lm in zip(diff, lim)):
+            raise AssertionError(f"{name}: card vs cpu by level {diff} over {lim}")
+        out[name] = dict(by_level=diff, cpu_self_by_level=self_diff, limit_by_level=lim,
+                         batch=batch, views=n, launches=launches[name])
+        del model, dev_model
+    results["baseline_parity"] = out
+    return launches
+
+
+def flax_variables_of(module):
+    """A module's state dict as the flax variables ``convert.py`` reads: kernels
+    HWIO / (in, out), norm scales ``scale``, a ``bn`` norm's statistics in
+    ``batch_stats`` and a FrozenBatchNorm's in ``params`` (numpy, no JAX)."""
+    bn = {name for name, m in module.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
+    tree = {"params": {}, "batch_stats": {}}
+    for key, v in module.state_dict().items():
+        mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        a = v.detach().cpu().numpy()
+        part, name = "params", leaf
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            part, name = ("batch_stats" if mod in bn else "params"), leaf[len("running_"):]
+        elif leaf == "weight" and a.ndim == 4:
+            name, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and a.ndim == 2:
+            name, a = "kernel", a.T
+        elif leaf == "weight":
+            name = "scale"
+        node = tree[part]
+        for seg in mod.split(".") if mod else ():
+            node = node.setdefault(seg, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree
+
+
+def _load_fresh(name, cfgs, device, state, fill):
+    """A new model of ``name``, every parameter set to ``fill``, then ``state``
+    loaded (strict)."""
+    model = baseline_model(name, cfgs, device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.fill_(fill)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()}, strict=True)
+    return model.to(device)
+
+
+def phase_baseline_reference(results, device="cuda", cfgs=None, image=256, views=8, batch=2):
+    """Phase 10b: PETR's and MVP's weights under the reference's names (the head's
+    table of ``convert_reference.py`` read backwards, with the reference's aliases
+    and counters), loaded back through the table into a fresh model, and the same
+    weights through ``convert.py`` from their flax layout into another: both card
+    forwards equal the source model's, bit for bit."""
+    from poem_v2_tpu_torch import convert_reference as cr
+    from poem_v2_tpu_torch.convert import flax_to_state_dict
+
+    log("phase 10b: reference-named PETR and MVP weights through convert_reference.py, "
+        "and the same weights through convert.py")
+    rs = np.random.RandomState(82)
+    args = _baseline_request(rs, batch, views, image, [views] + [views - 3] * (batch - 1),
+                             device)
+    out, launches = {}, {}
+    for name, table_of in (("petr", cr.convert_petr_head), ("mvp", cr.convert_mvp_head)):
+        src = baseline_model(name, cfgs, device=device)
+        sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+        table = table_of(sd.keys())
+        ref = cr.table_to_reference(sd, table)
+        for key, (port, _) in table.items():  # a released dict also holds the reg branch's
+            if port is None and key.startswith("reg_branches."):  # aliases at every level
+                ref[key] = ref["reg_branches.0." + key.split(".", 2)[2]]
+        head_sd, left = cr.apply_table(ref, table)
+        via_ref = _load_fresh(name, cfgs, device, {**{k: v for k, v in sd.items()
+                                                      if not k.startswith("head.")}, **head_sd},
+                              fill=3.0)
+        via_flax = _load_fresh(name, cfgs, device, flax_to_state_dict(flax_variables_of(src)),
+                               fill=4.0)
+        with torch.inference_mode():
+            reset_launches()
+            want = src(*args)
+            got_ref, got_flax = via_ref(*args), via_flax(*args)
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+        same = {route: all(torch.equal(got[k], want[k]) for k in want)
+                for route, got in (("convert_reference", got_ref), ("convert.py", got_flax))}
+        n_ref = sum(1 for k in table if k in ref)
+        log(f"  {name}: {n_ref} reference keys, {len(head_sd)} head tensors, leftover {left}; "
+            f"forward bit-identical to the source: {same}")
+        if left or not all(same.values()):
+            raise AssertionError(f"{name}: leftover {left}, bit-identical {same}")
+        out[name] = dict(reference_keys=n_ref, head_tensors=len(head_sd), same=same,
+                         launches=launches[name])
+        del src, via_ref, via_flax
+    results["baseline_reference"] = out
+    return launches
+
+
+def phase_baseline_times(results, device="cuda", dtype="bf16", cfgs=None, image=256, views=8,
+                         buckets=(1, 4, 16), mixed_batch=4, train_batch=4):
+    """Phase 10c: each baseline with float32 parameters under ``dtype`` autocast: the
+    eval forward at B``buckets`` of all views and at a mixed 2-``views`` B
+    ``mixed_batch`` (CUDA events, median of 3 after one warm-up) and its peak GiB;
+    one training-mode forward + backward of the summed coordinates at
+    B``train_batch`` (mixed views; dropout on, seeded), its time and peak."""
+    log("phase 10c: PETR, PETR-FTL and MVP forwards in bf16, and a training forward + backward")
+    card = gpu_line()
+    on_card = device.startswith("cuda")
+    cdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    out, launches = {}, {}
+    for name in BASELINE_NAMES:
+        model = baseline_model(name, cfgs, dtype=cdt, device=device, param_dtype=torch.float32)
+        rs = np.random.RandomState(83)
+        reqs = {f"B{b}": _baseline_request(rs, b, views, image, device=device) for b in buckets}
+        mixed = mixed_view_mask(rs, mixed_batch, views).sum(1)
+        reqs[f"mixed B{mixed_batch}"] = _baseline_request(rs, mixed_batch, views, image, mixed,
+                                                          device)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rows = {}
+        with torch.inference_mode():
+            for key, req in reqs.items():
+                res = model(*req)
+                if not torch.isfinite(res["pred_verts_3d"]).all():
+                    raise AssertionError(f"{name} {key}: non-finite vertices")
+                runs = [time_cuda(lambda: model(*req), iters=1, warmup=int(i == 0))
+                        for i in range(3)]
+                rows[key] = dict(median_ms=float(np.median(runs)), runs_ms=runs)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+        model.train()
+        req = reqs[f"mixed B{mixed_batch}"] if train_batch == mixed_batch else \
+            _baseline_request(rs, train_batch, views, image, device=device)
+
+        def step():
+            with torch.random.fork_rng(devices=[torch.device(device)] if on_card else []):
+                torch.manual_seed(84)
+                model(*req)["all_coords_preds"].float().sum().backward()
+
+        step()  # warm-up: the backward's kernels and the allocator
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        train_ms = time_cuda(step, iters=1, warmup=0)
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if not grads or not all(torch.isfinite(g).all() for g in grads):
+            raise AssertionError(f"{name}: training backward gave no or non-finite gradients")
+        launches[name] = read_launches()
+        log(f"  {name} {dtype} [{card}]: " + "; ".join(
+            f"{k} {r['median_ms']:.2f} ms ({', '.join(f'{t:.2f}' for t in r['runs_ms'])})"
+            for k, r in rows.items()) + f"; peak {peak:.2f} GiB; train forward + backward "
+            f"B{train_batch} {train_ms:.2f} ms, peak {train_peak:.2f} GiB; launches "
+            + (", ".join(f"{k} {v}" for k, v in launches[name].items() if v) or "none"))
+        out[name] = dict(requests=rows, peak_gib=peak, train_ms=train_ms,
+                         train_peak_gib=train_peak, train_batch=train_batch, card=card,
+                         launches=launches[name])
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+    results["baseline_times"] = out
+    return launches
+
+
+def phase_metro_reference(results, device="cuda", cfg=None, image=224, batch=2):
+    """Phase 10d: ``create_metro_model``'s weights under the reference's names through
+    ``convert_metro_network`` (the blocks' dead BERT embeddings and pooler in the
+    reference dict, consumed and dropped) into a fresh model on the card: its
+    forward equals the source's bit for bit."""
+    from poem_v2_tpu_torch import convert_reference as cr
+    from poem_v2_tpu_torch.models.metro import create_metro_model
+
+    log("phase 10d: METRO's weights under the reference names through convert_metro_network")
+    src, _ = create_metro_model(cfg, device=device)
+    sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    table = cr.convert_metro_network(sd.keys())
+    ref = cr.table_to_reference(sd, table)
+    dead = [k for k, (port, _) in table.items() if port is None]
+    ref.update({k: torch.zeros(2) for k in dead})
+    converted, left = cr.apply_table(ref, table)
+    fresh, _ = create_metro_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    fresh.load_state_dict({**{k: v for k, v in sd.items() if k.startswith("backbone.")},
+                           **converted}, strict=True)
+    fresh = fresh.to(device)
+    img = torch.from_numpy(np.random.RandomState(85).uniform(
+        -0.5, 0.5, (batch, image, image, 3)).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        reset_launches()
+        want, got = src(img), fresh(img)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    log(f"  {len(converted)} tensors from {len(ref)} reference keys ({len(dead)} dead, dropped), "
+        f"leftover {left}; forward bit-identical: {same}")
+    if left or not same:
+        raise AssertionError(f"METRO converter round trip: leftover {left}, bit-identical {same}")
+    results["metro_reference"] = dict(converted=len(converted), reference_keys=len(ref),
+                                      dead=len(dead), same=same, launches=launches)
+    return launches
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:

@@ -9,6 +9,10 @@ parametric (MANO pose and shape) output. ``SYNTHETIC`` holds the seven
 ``configs/synthetic_*.yaml`` (the ResNet-18 model on the synthetic
 generator), each whole: smoke verbatim, the others as the changes they make
 to it. A CPU test checks each against its YAML file.
+
+``BASELINES`` holds the ``MODEL`` sections of the two multi-view baselines,
+PETR and MVP, at the JAX package's defaults (no config file ships them):
+ResNet-34 GN, embed 256, 6 decoder layers, 256 px crops of 8 views.
 """
 
 import copy
@@ -187,4 +191,29 @@ SYNTHETIC = {
     "synthetic_overfit_gate_mano_800": _overfit(800, [280, 400, 640], views=8, size=128,
                                                 render=True, ref_noise=0.004, parametric=True,
                                                 joints_2d=5.0),
+}
+
+
+# the multi-view baselines (models/petr.py, models/mvp.py) at the JAX defaults
+_BASELINE_PRESET = {"CENTER_IDX": 0, "NUM_JOINTS": 21}
+BASELINES = {
+    "PETR": {
+        "TYPE": "PETRMultiView",
+        "BACKBONE": {"TYPE": "resnet34", "NORM": "gn"},
+        "HEAD": {"TYPE": "PETRHead", "EMBED_DIMS": 256, "IN_CHANNELS": 256, "NUM_QUERY": 799,
+                 "NUM_PREDS": 6, "NUM_REG_FCS": 2, "DEPTH_NUM": 32, "DEPTH_START": 0.0,
+                 "DEPTH_END": 1.2, "LID": False,
+                 "POSITION_RANGE": [-0.6, -0.6, 0.0, 0.6, 0.6, 1.2],
+                 "POSITIONAL_ENCODING": {"NUM_FEATS": 128, "NORMALIZE": True}},
+        "DATA_PRESET": dict(_BASELINE_PRESET),
+    },
+    "MVP": {
+        "TYPE": "MVP",
+        "BACKBONE": {"TYPE": "resnet34", "NORM": "gn"},
+        "HEAD": {"TYPE": "MVPHead", "EMBED_DIMS": 256, "NUM_PREDS": 6, "NUM_HEADS": 8,
+                 "NUM_POINTS": 4, "DIM_FEEDFORWARD": 1024, "DROPOUT": 0.1,
+                 "POSITION_RANGE": [-0.6, -0.6, 0.0, 0.6, 0.6, 1.2], "IMAGE_SIZE": 256,
+                 "CAMERA_NUM": 8},
+        "DATA_PRESET": dict(_BASELINE_PRESET),
+    },
 }

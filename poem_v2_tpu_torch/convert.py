@@ -13,8 +13,9 @@ map is mechanical:
 * ``scale`` -> ``weight``; FrozenBatchNorm ``mean`` / ``var`` and BatchNorm
   statistics -> ``running_mean`` / ``running_var`` (BatchNorm also gets
   ``num_batches_tracked`` = 0);
-* every other leaf (``fc_delta_w1`` ... , ``query_feat_embedding``) keeps
-  its name and layout.
+* every other leaf (``fc_delta_w1`` ... , ``query_feat_embedding``, PETR's
+  ``reference_points``, MVP's ``tgt_pose_embedding``) keeps its name and
+  layout.
 """
 
 from __future__ import annotations

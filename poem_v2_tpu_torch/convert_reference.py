@@ -14,23 +14,31 @@ The table serves both ways: :func:`convert_poem_checkpoint` loads a reference
 state dict (leftover reference keys are returned, never dropped), and
 :func:`to_reference` writes a port state dict under the reference names.
 The reference's ``num_batches_tracked`` counters of the necks' ConvBlocks are
-consumed and dropped, as the JAX converter consumes them; the backbone's stay
-leftovers there and here. ``petr`` / ``metro`` / ``cmr`` / ``mvp`` wait for
-their models.
+consumed and dropped, as the JAX converter consumes them (kept where the port's
+ConvBlock has a ``bn`` norm with such a counter); the backbone's stay leftovers
+there and here.
+
+The baselines' tables come from the JAX converters of the same names:
+:func:`convert_petr_head`, :func:`convert_mvp_head` and
+:func:`convert_metro_network`. A packed ``nn.MultiheadAttention`` ``in_proj``
+maps to a tuple of port keys (q, k, v): :func:`apply_table` splits it into
+equal row blocks and :func:`table_to_reference` concatenates them back. ``cmr``
+waits for its model.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .convert import _RAW_KERNELS, torch_key
 
-# reference key -> (port key, or None for a key consumed and dropped; transpose)
-Table = Dict[str, Tuple[Optional[str], bool]]
+# reference key -> (port key, a tuple of port keys for a packed array split into equal
+# row blocks, or None for a key consumed and dropped; transpose)
+Table = Dict[str, Tuple[Union[None, str, Tuple[str, ...]], bool]]
 
 
 def load_torch_state_dict(path: str) -> Dict[str, Any]:
@@ -60,8 +68,26 @@ class _Builder:
         flax_layout = not (path[-1] == "kernel" and path[-2] not in _RAW_KERNELS)
         self.table[ref] = (key, kind == "linear" and flax_layout)
 
+    def put_packed(self, ref: str, paths: Sequence[List[str]]) -> None:
+        """``ref`` -> the port keys of ``paths``, one equal row block each (a packed
+        q / k / v projection), if the model has them all."""
+        keys = tuple(torch_key(tuple(p[:-1]), p[-1], 0) for p in paths)
+        if all(k in self.port_keys for k in keys):
+            self.table[ref] = (keys, False)
+
     def drop(self, ref: str) -> None:
         self.table[ref] = (None, False)
+
+
+def _put_linear(b: _Builder, ref: str, path: List[str]) -> None:
+    """A reference ``nn.Linear`` / ``Conv2d`` (``ref`` ends in ``weight``) and its bias."""
+    b.put(ref, path + ["kernel"], "linear")
+    b.put(ref[:-len("weight")] + "bias", path + ["bias"])
+
+
+def _put_norm(b: _Builder, ref_prefix: str, path: List[str]) -> None:
+    b.put(ref_prefix + "weight", path + ["scale"])
+    b.put(ref_prefix + "bias", path + ["bias"])
 
 
 def convert_decoder_block(b: _Builder, prefix: str, path: List[str]) -> None:
@@ -69,12 +95,10 @@ def convert_decoder_block(b: _Builder, prefix: str, path: List[str]) -> None:
     ``ptEmb_head.transformer.pt_metro_encoder.0.``) onto the block at ``path``."""
 
     def put(ref, sub):
-        b.put(ref, path + sub + ["kernel"], "linear")
-        b.put(ref.replace("weight", "bias"), path + sub + ["bias"])
+        _put_linear(b, ref, path + sub)
 
     def put_ln(ref_prefix, sub):
-        b.put(ref_prefix + "weight", path + sub + ["scale"])
-        b.put(ref_prefix + "bias", path + sub + ["bias"])
+        _put_norm(b, ref_prefix, path + sub)
 
     put(prefix + "embedding.weight", ["embedding"])
     for t_name, j_name in (("encoder.attn", "attn"), ("encoder.cross_attn", "cross_attn")):
@@ -155,7 +179,10 @@ def convert_conv_block(b: _Builder, ref_prefix: str, path: List[str]) -> None:
     b.put(f"{ref_prefix}.conv.weight", path + ["Conv_0", "kernel"], "conv")
     b.put(f"{ref_prefix}.conv.bias", path + ["Conv_0", "bias"])
     convert_frozen_bn(b, f"{ref_prefix}.norm", path + ["FrozenBatchNorm_0"])
-    b.drop(f"{ref_prefix}.norm.num_batches_tracked")
+    counter = f"{ref_prefix}.norm.num_batches_tracked"
+    b.put(counter, path + ["FrozenBatchNorm_0", "num_batches_tracked"])
+    if counter not in b.table:
+        b.drop(counter)
 
 
 def convert_necks(b: _Builder) -> None:
@@ -253,9 +280,26 @@ def apply_table(state: Dict[str, Any], table: Table) -> Tuple[Dict[str, Any], Li
     out = {}
     for ref, v in state.items():
         port, transpose = table.get(ref, (None, False))
-        if port is not None:
+        if isinstance(port, tuple):
+            n = len(v) // len(port)
+            out.update((k, v[i * n:(i + 1) * n]) for i, k in enumerate(port))
+        elif port is not None:
             out[port] = _transposed(v) if transpose else v
     return out, [k for k in state if k not in table]
+
+
+def table_to_reference(port_state: Dict[str, Any], table: Table) -> Dict[str, Any]:
+    """A port state dict under the reference names of ``table`` (read backwards);
+    dropped reference keys are not written."""
+    out = {}
+    for ref, (port, transpose) in table.items():
+        if isinstance(port, tuple):
+            parts = [port_state[k] for k in port]
+            out[ref] = (torch.cat(parts) if isinstance(parts[0], torch.Tensor)
+                        else np.concatenate(parts))
+        elif port is not None:
+            out[ref] = _transposed(port_state[port]) if transpose else port_state[port]
+    return out
 
 
 def convert_poem_checkpoint(state: Dict[str, Any], port_keys: Iterable[str],
@@ -268,6 +312,135 @@ def convert_poem_checkpoint(state: Dict[str, Any], port_keys: Iterable[str],
 
 def to_reference(port_state: Dict[str, Any], arch: str) -> Dict[str, Any]:
     """A port state dict under the reference names (the table read backwards)."""
-    return {ref: _transposed(port_state[port]) if transpose else port_state[port]
-            for ref, (port, transpose) in reference_table(port_state, arch).items()
-            if port is not None}
+    return table_to_reference(port_state, reference_table(port_state, arch))
+
+
+def _layer_indices(port_keys: Iterable[str], pattern: str) -> List[int]:
+    return sorted({int(m.group(1)) for k in port_keys if (m := re.match(pattern, k))})
+
+
+def _put_mha(b: _Builder, ref_prefix: str, path: List[str]) -> None:
+    """A reference ``nn.MultiheadAttention``: its packed in_proj split into the
+    port's q / k / v projections, and out_proj."""
+    for leaf in ("weight", "bias"):
+        b.put_packed(f"{ref_prefix}in_proj_{leaf}",
+                     [path + [proj, "kernel" if leaf == "weight" else "bias"]
+                      for proj in ("q_proj", "k_proj", "v_proj")])
+    _put_linear(b, f"{ref_prefix}out_proj.weight", path + ["out_proj"])
+
+
+def convert_petr_head(port_keys: Iterable[str], prefix: str = "",
+                      path: Sequence[str] = ("head",)) -> Table:
+    """Table of a reference ``PETRHead`` (keys under ``prefix``) onto the port's
+    PETR head at ``path`` (``()`` for a head alone): the 1x1 convs, the reference
+    points' embedding table, the query embedding, ONE shared reg branch read from
+    level 0 (the reference repeats one Sequential: the other levels' keys are
+    consumed and dropped), and per decoder layer the packed attention split into
+    q / k / v, the mmcv FFN and three norms, then the sequence's ``post_norm``."""
+    b = _Builder(port_keys)
+    h = list(path)
+    for ref, sub in (("input_proj", ["input_proj"]), ("adapt_pos3d.0", ["adapt_pos3d_1"]),
+                     ("adapt_pos3d.2", ["adapt_pos3d_2"]),
+                     ("position_encoder.0", ["position_encoder", "pe_conv1"]),
+                     ("position_encoder.2", ["position_encoder", "pe_conv2"]),
+                     ("query_embedding.0", ["query_embedding_1"]),
+                     ("query_embedding.2", ["query_embedding_2"])):
+        _put_linear(b, f"{prefix}{ref}.weight", h + sub)
+    b.put(f"{prefix}reference_points.weight", h + ["reference_points"])
+    head_keys = [k for k in b.port_keys if k.startswith(".".join(h + ["reg_fc"]))]
+    n_fc = len({k.rsplit(".", 1)[0] for k in head_keys})
+    for i in range(n_fc):
+        _put_linear(b, f"{prefix}reg_branches.0.{2 * i}.weight", h + [f"reg_fc{i}"])
+    _put_linear(b, f"{prefix}reg_branches.0.{2 * n_fc}.weight", h + ["reg_out"])
+    tr = ".".join(h + ["transformer"])
+    layers = _layer_indices(b.port_keys, re.escape(tr) + r"\.layer_(\d+)\.")
+    for lvl in layers[1:]:  # the repeated reg branch's aliases
+        for i in range(n_fc + 1):
+            for leaf in ("weight", "bias"):
+                b.drop(f"{prefix}reg_branches.{lvl}.{2 * i}.{leaf}")
+    for i in layers:
+        t, layer = f"{prefix}transformer.decoder.layers.{i}.", h + ["transformer", f"layer_{i}"]
+        for ai in range(2):
+            _put_mha(b, f"{t}attentions.{ai}.attn.", layer + [f"attn_{ai}"])
+        _put_linear(b, f"{t}ffns.0.layers.0.0.weight", layer + ["ffn_0", "fc1"])
+        _put_linear(b, f"{t}ffns.0.layers.1.weight", layer + ["ffn_0", "fc2"])
+        for ni in range(3):
+            _put_norm(b, f"{t}norms.{ni}.", layer + [f"norm_{ni}"])
+    _put_norm(b, f"{prefix}transformer.decoder.post_norm.", h + ["transformer", "post_norm"])
+    return b.table
+
+
+# constructed by the reference's MVPHead.__init__, never called in its forward
+MVP_DEAD = ("input_proj", "layer_global_feat", "query_embedding.0", "query_embedding.2")
+
+
+def convert_mvp_head(port_keys: Iterable[str], prefix: str = "",
+                     path: Sequence[str] = ("head",)) -> Table:
+    """Table of a reference ``MVPHead`` onto the port's at ``path``: the three
+    ``feat_delayer`` ConvBlocks (BatchNorm onto the port's ``bn`` or ``frozen_bn``
+    norm), ``reference_feats`` / ``reference_points`` and the ``tgt_pose_embedding``
+    table, per decoder layer the packed self-attention split into q / k / v, the
+    ProjAttn linears, four norms, the FFN and MANO linears, and the head's per-layer
+    reg branches. The reference's dead ``input_proj``, ``layer_global_feat`` and
+    ``query_embedding`` are consumed and dropped."""
+    b = _Builder(port_keys)
+    h = list(path)
+    for i in range(3):
+        convert_conv_block(b, f"{prefix}feat_delayer.{i}", h + [f"feat_delayer_{i}"])
+    _put_linear(b, f"{prefix}reference_feats.weight", h + ["reference_feats"])
+    _put_linear(b, f"{prefix}reference_points.weight", h + ["reference_points"])
+    b.put(f"{prefix}tgt_pose_embedding.weight", h + ["tgt_pose_embedding"])
+    for dead in MVP_DEAD:
+        b.drop(f"{prefix}{dead}.weight")
+        b.drop(f"{prefix}{dead}.bias")
+    head = ".".join(h + [""]) if h else ""
+    for i in _layer_indices(b.port_keys, re.escape(head) + r"layer_(\d+)\."):
+        t, layer = f"{prefix}decoder.layers.{i}.", h + [f"layer_{i}"]
+        _put_mha(b, f"{t}self_attn.", layer + ["self_attn"])
+        for name in ("sampling_offsets", "attention_weights", "rayconv", "output_proj"):
+            _put_linear(b, f"{t}proj_attn.{name}.weight", layer + ["proj_attn", name])
+        for ln in ("norm1", "norm2", "norm3", "norm4"):
+            _put_norm(b, f"{t}{ln}.", layer + [ln])
+        for name in ("linear1", "linear2", "linear_mano_1", "linear_mano_2"):
+            _put_linear(b, f"{t}{name}.weight", layer + [name])
+        _put_linear(b, f"{prefix}reg_branches.{i}.0.weight", h + [f"reg_branch_{i}_fc"])
+        _put_linear(b, f"{prefix}reg_branches.{i}.2.weight", h + [f"reg_branch_{i}_out"])
+    return b.table
+
+
+# the reference's BertModel builds these in every METRO block; its forward never calls them
+METRO_DEAD = ("embeddings.word_embeddings.weight", "embeddings.position_embeddings.weight",
+              "embeddings.token_type_embeddings.weight", "embeddings.LayerNorm.weight",
+              "embeddings.LayerNorm.bias", "pooler.dense.weight", "pooler.dense.bias")
+
+
+def convert_metro_network(port_keys: Iterable[str], prefix: str = "") -> Table:
+    """Table of a reference ``METRO_Hand_Network`` onto the port's METRONetwork:
+    per block ``trans_encoder.{i}`` the image embedding, the learned position table,
+    each BERT layer's attention (query / key / value / output and its LayerNorm)
+    and FFN, the cls head and the residual; then the 195 -> 778 upsampling and the
+    camera head. The blocks' dead ``bert.embeddings`` / ``bert.pooler`` are consumed
+    and dropped (the JAX converter leaves them unconsumed); the CNN backbone is not
+    in the table, as in the JAX converter."""
+    b = _Builder(port_keys)
+    for i in _layer_indices(b.port_keys, r"block_(\d+)\."):
+        t, blk = f"{prefix}trans_encoder.{i}.", [f"block_{i}"]
+        _put_linear(b, f"{t}bert.img_embedding.weight", blk + ["img_embedding"])
+        b.put(f"{t}bert.position_embeddings.weight", blk + ["position_embeddings"])
+        for dead in METRO_DEAD:
+            b.drop(f"{t}bert.{dead}")
+        for n in _layer_indices(b.port_keys, rf"block_{i}\.layer(\d+)_attn\."):
+            hf, attn, ffn = f"{t}bert.encoder.layer.{n}.", blk + [f"layer{n}_attn"], blk + [
+                f"layer{n}_ffn"]
+            for part in ("query", "key", "value"):
+                _put_linear(b, f"{hf}attention.self.{part}.weight", attn + [part])
+            _put_linear(b, f"{hf}attention.output.dense.weight", attn + ["out"])
+            _put_norm(b, f"{hf}attention.output.LayerNorm.", attn + ["ln"])
+            _put_linear(b, f"{hf}intermediate.dense.weight", ffn + ["intermediate"])
+            _put_linear(b, f"{hf}output.dense.weight", ffn + ["output"])
+            _put_norm(b, f"{hf}output.LayerNorm.", ffn + ["ln"])
+        _put_linear(b, f"{t}cls_head.weight", blk + ["cls_head"])
+        _put_linear(b, f"{t}residual.weight", blk + ["residual"])
+    for name in ("upsampling", "cam_param_fc", "cam_param_fc2", "cam_param_fc3"):
+        _put_linear(b, f"{prefix}{name}.weight", [name])
+    return b.table

@@ -46,9 +46,12 @@ class ManoLayer:
     def _constants(self, device: torch.device):
         """(v_template, shapedirs, posedirs, j_regressor, lbs_weights) on ``device``."""
         if device not in self._on_device:
-            self._on_device[device] = tuple(
-                t.to(device) for t in (self.v_template, self.shapedirs, self.posedirs,
-                                       self.j_regressor, self.lbs_weights))
+            # normal tensors even when first copied under inference_mode, so a later
+            # forward that records autograd can use them
+            with torch.inference_mode(False):
+                self._on_device[device] = tuple(
+                    t.to(device) for t in (self.v_template, self.shapedirs, self.posedirs,
+                                           self.j_regressor, self.lbs_weights))
         return self._on_device[device]
 
     def __call__(self, pose_aa: torch.Tensor, betas: torch.Tensor) -> ManoOutput:

@@ -179,8 +179,8 @@ def load_static_assets(head_cfg: dict, nsample: int, radius: float, num_query: i
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``: N(0, 0.02) for the BERT attention /
     FFN dense layers (METRO's too), the query embedding and METRO's position
-    embeddings, U(0, 1) for the v1 heads' reference embedding (the flax
-    initialisers), other
+    embeddings, U(0, 1) for the v1 heads' reference embedding, PETR's reference
+    points and MVP's query table (the flax initialisers), other
     matrices at half the lecun-normal scale, zero biases, unit norm scales,
     running statistics 0 / 1. At the full lecun scale the merge's cubic
     product sends the decoded points metres away from the hand, where
@@ -192,7 +192,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             if p.dim() == 1:
                 ones = leaf in ("weight", "running_var")  # scales; FrozenBatchNorm's variance
                 val = torch.ones(p.shape) if ones else torch.zeros(p.shape)
-            elif leaf == "reference_embed":
+            elif leaf in ("reference_embed", "reference_points", "tgt_pose_embedding"):
                 val = torch.rand(p.shape, generator=generator)
             elif leaf in ("query_feat_embedding", "position_embeddings") or bert.search(name):
                 val = torch.randn(p.shape, generator=generator) * 0.02

@@ -62,6 +62,9 @@ def build_from_cfg(cfg: Config, registry: Registry, **kwargs: Any):
 DATASET = Registry("dataset")
 TRANSFORM = Registry("transform")
 MODEL = Registry("model")
+ATTENTION = Registry("attention")
+TRANSFORMER = Registry("transformer")
+HEAD = Registry("head")
 
 
 def build_transform(cfg: Config, **kwargs):

@@ -466,3 +466,50 @@ def test_phase_9_rehearsal(on_cpu, one_thread, monkeypatch):
     json.dumps({"variants": {k: results[k] for k in (
         "variant_parity", "variant_serving", "variant_train", "v1_heads", "metro",
         "metro_k3")}}, default=float)
+
+
+def small_baselines():
+    """PETR and MVP at tests/test_baselines.py-like sizes (ResNet-18 GN, embed 32, 2
+    layers, 8 depth bins / 2 points, 3 views) in place of configs.BASELINES."""
+    import copy
+
+    from poem_v2_tpu_torch.configs import BASELINES
+
+    cfgs = copy.deepcopy(BASELINES)
+    for cfg in cfgs.values():
+        cfg["BACKBONE"]["TYPE"] = "resnet18"
+        cfg["HEAD"].update(EMBED_DIMS=32, NUM_PREDS=2)
+    cfgs["PETR"]["HEAD"]["DEPTH_NUM"] = 8
+    cfgs["PETR"]["HEAD"]["POSITIONAL_ENCODING"]["NUM_FEATS"] = 16
+    cfgs["MVP"]["HEAD"].update(NUM_POINTS=2, DIM_FEEDFORWARD=64, IMAGE_SIZE=64, CAMERA_NUM=3)
+    return cfgs
+
+
+def test_phase_10_rehearsal(on_cpu, one_thread):
+    """Phase 10 on the CPU at small sizes: the baselines' parity (the CPU against
+    itself: no difference, a limit from the nudge), the reference-named and
+    flax-layout routes bit for bit, the timed forwards and the training backward,
+    and METRO's converter round trip; none launches a kernel."""
+    cfgs = small_baselines()
+    results = {}
+    small = dict(device="cpu", cfgs=cfgs, image=64, views=3)
+    zeros = {k: 0 for k in chip_smoke.KERNELS}
+    parity = chip_smoke.phase_baseline_parity(results, **small, part_views=2)
+    ref = chip_smoke.phase_baseline_reference(results, **small)
+    times = chip_smoke.phase_baseline_times(results, dtype="fp32", buckets=(1,), mixed_batch=2,
+                                            train_batch=2, **small)
+    metro = chip_smoke.phase_metro_reference(results, device="cpu", cfg={
+        "BACKBONE": {"TYPE": "resnet18", "NORM": "gn"}, "INPUT_FEAT_DIM": [515, 32, 16],
+        "HIDDEN_FEAT_DIM": [64, 32, 16]}, image=64, batch=1)
+    assert set(parity) == set(times) == set(chip_smoke.BASELINE_NAMES)
+    assert set(ref) == {"petr", "mvp"}
+    assert all(v == zeros for d in (parity, ref, times) for v in d.values()) and metro == zeros
+    for name, r in results["baseline_parity"].items():
+        assert len(r["by_level"]) == 2 and max(r["by_level"]) == 0.0, name
+        assert min(r["limit_by_level"]) >= chip_smoke.BASELINE_FLOOR_M
+    assert all(all(r["same"].values()) for r in results["baseline_reference"].values())
+    assert set(results["baseline_times"]["mvp"]["requests"]) == {"B1", "mixed B2"}
+    json.dumps({"baselines": {k: results[k] for k in (
+        "baseline_parity", "baseline_reference", "baseline_times", "metro_reference")}},
+        default=float)
+

@@ -6,6 +6,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "poem_v2_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "poem_v2_tpu")
 
@@ -212,4 +214,46 @@ def test_drawing_path_runs_without_opencv_matplotlib_tqdm_open3d_or_yaml():
     proc = subprocess.run([sys.executable, "-c", _DRAW_SCRIPT % {"blocked": blocked}],
                           capture_output=True, text=True, env=env, timeout=300,
                           cwd=os.path.dirname(PKG))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+_BASELINE_SCRIPT = r"""
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %(forbidden)r:
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import torch
+mod = importlib.import_module(%(module)r)
+leaked = [k for k in sys.modules if k.split(".")[0] in %(forbidden)r]
+assert not leaked, leaked
+if %(factory)r and not torch.cuda.is_available():
+    from poem_v2_tpu_torch.configs import BASELINES
+    try:
+        getattr(mod, %(factory)r)(BASELINES[%(cfg)r])
+    except RuntimeError as e:
+        assert "CUDA" in str(e) and 'device="cpu"' in str(e), e
+    else:
+        raise AssertionError("built on the default device without a card")
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("module,factory,cfg", [
+    ("poem_v2_tpu_torch.models.bricks.transformer_layer", "", ""),
+    ("poem_v2_tpu_torch.models.petr", "create_petr_model", "PETR"),
+    ("poem_v2_tpu_torch.models.mvp", "create_mvp_model", "MVP"),
+])
+def test_baseline_modules_stand_alone(module, factory, cfg):
+    """Each baseline module imports alone with JAX, flax, PyYAML and the JAX package
+    blocked; its factory targets the card by default and, without one, raises."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    script = _BASELINE_SCRIPT % {"forbidden": FORBIDDEN, "module": module, "factory": factory,
+                                 "cfg": cfg}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=env, timeout=300, cwd=os.path.dirname(PKG))
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

@@ -164,3 +164,74 @@ def small_metro_stage(monkeypatch):
 
     monkeypatch.setattr(jax_v3, "PtEmbedTRv3", JaxSmall)
     monkeypatch.setattr(torch_v3, "PtEmbedTRv3", TorchSmall)
+
+
+@contextlib.contextmanager
+def one_thread_no_tf32():
+    """TF32 off and one intra-op thread (the tier runs several test files at once
+    on the host's cores, and more threads a process only contend)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_num_threads(saved[1])
+
+
+def assert_grads_match(want_tree, module, extra=(), rel=1e-4):
+    """Flax gradients ``want_tree`` (converted like parameters) against the port
+    module's ``.grad``, and the ``extra`` (name, got, want) arrays: each to ``rel``
+    of the largest gradient of the same tensor, plus 1e-6 of the global peak."""
+    want = flax_to_state_dict({"params": to_numpy_tree(want_tree)})
+    got = {k: p.grad for k, p in module.named_parameters()}
+    assert set(want) == set(got) and all(g is not None for g in got.values())
+    pairs = [(k, got[k].numpy(), w) for k, w in want.items()] + list(extra)
+    peak = max(float(np.abs(w).max()) for _, _, w in pairs)
+    assert peak > 0
+    for name, g, w in pairs:
+        np.testing.assert_allclose(g, w, rtol=0, atol=rel * np.abs(w).max() + 1e-6 * peak,
+                                   err_msg=name)
+
+
+def baseline_inputs(seed=0, B=2, V=3, image=64):
+    """A padded multi-view batch, view V - 1 of sample 1 padded: images (B, V, image,
+    image, 3) in [-0.5, 0.5], view mask, intr, extr (``look_at_cameras``)."""
+    rs = np.random.RandomState(seed)
+    images = rs.uniform(-0.5, 0.5, (B, V, image, image, 3)).astype(np.float32)
+    mask = np.ones((B, V), bool)
+    mask[1, V - 1] = False
+    intr, extr = look_at_cameras(rs, B, V, image)
+    return images, mask, intr, extr
+
+
+# the baseline heads at tiny widths (tests/test_torch_petr.py, test_torch_mvp.py)
+PETR_HEAD_KW = dict(embed_dims=32, in_channels=32, num_query=64, num_preds=2, depth_num=8,
+                    pe_num_feats=16, num_heads=4, feedforward_channels=64)
+MVP_HEAD_KW = dict(embed_dims=32, num_layers=2, num_heads=4, num_points=2, d_ffn=64,
+                   image_size=(64, 64))
+MVP_LEVELS = ((8, 16), (4, 24), (2, 32))  # (size, channels) of the feature levels, finest first
+
+
+def petr_head_inputs(seed=0, B=2, V=3, hw=4, C=32, nq=64, image=64):
+    """Channels-last features (B, V, hw, hw, C), view V - 1 of sample 1 padded, the
+    cameras, and an (nq, 3) template around 0.5 m."""
+    rs = np.random.RandomState(seed)
+    feat = rs.randn(B, V, hw, hw, C).astype(np.float32)
+    mask = np.ones((B, V), bool)
+    mask[1, V - 1] = False
+    intr, extr = look_at_cameras(rs, B, V, image)
+    template = (rs.randn(nq, 3) * 0.05 + [0.0, 0.0, 0.5]).astype(np.float32)
+    return feat, mask, intr, extr, template
+
+
+def mvp_head_inputs(seed=0, B=2, V=3, image=64):
+    """The ``MVP_LEVELS`` feature levels (B, V, s, s, c), view V - 1 of sample 1
+    padded, and the cameras."""
+    rs = np.random.RandomState(seed)
+    feats = [rs.randn(B, V, s, s, c).astype(np.float32) for s, c in MVP_LEVELS]
+    mask = np.ones((B, V), bool)
+    mask[1, V - 1] = False
+    intr, extr = look_at_cameras(rs, B, V, image)
+    return feats, mask, intr, extr
