@@ -190,16 +190,36 @@ non-zero:
    mixed 2-8-view B4 (CUDA events, median of 3), peak GiB, one training forward +
    backward at B4 with dropout, its time and peak; (d) METRO's weights through
    ``convert_metro_network`` and back, forward bit-identical.
+11. the auxiliary family, which launches none of K1-K10 (counted as
+   ``aux_launches``, not asserted): (a) CMR_G at full width (ResNet-18 trunks,
+   OUT_CHANNELS (32, 64, 128, 256), attention on with its gamma set to 0.5), 256
+   px, B4, float32 card against the port's CPU forward, all five outputs each
+   within the larger of 1e-4 of its peak and 5 times the CPU's own spread under a
+   1e-7 nudge of the images; (b) IntegralPose on ResNet-50 (3 deconvs of 256)
+   with its 2D softmax head and a 3D head of 64 depth bins, DarkPose on ResNet-50
+   with ``dark_decode`` of the card's heatmaps against the CPU's (1e-3 px, or a
+   near-tie of the blurred map), HourglassBisected (256 features, depth 4) at B2,
+   as (a); each of (a) and (b) also bf16 autocast forwards at B1 / B4 (CUDA events,
+   median of 3) and peak GiB; (c) the MANO fitter: its objective's value and
+   gradient at the identity init and at a random state, card against CPU (1e-5,
+   1e-4 of each peak), tests/test_fit.py's scenario at B4 of 8 views (one frame
+   with 4 padded), 400 steps at lr 5e-2 with the 3D term: the loss falls tenfold
+   and the mean joint error ends under 1.5 cm, and one ``OneFrameFitSilh`` run at S
+   64 (B2 of 4 views, 30 steps) whose silhouette loss falls; (d)
+   ``knn_points_bucketed`` on the 4096-point BPS cloud for B8 x 799 queries, the
+   same indices and distances as on the CPU, timed beside brute force.
 
 The lines before the kernels line are JSON objects ``{"data": ...}`` with phase
 7's readings, ``{"drawing": ...}`` with phase 8's, ``{"variants": ...}`` with
-phase 9's and ``{"baselines": ...}`` with phase 10's. The second-to-last line is a JSON object with one entry per kernel (``ms``
+phase 9's, ``{"baselines": ...}`` with phase 10's and ``{"aux": ...}`` with phase 11's.
+The second-to-last line is a JSON object with one entry per kernel (``ms``
 call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
 K9's also their selections' times from phase 1e under ``selection``; K3's and
 K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
 on phase 5's paths under ``front_door_launches``, on phase 7's under
 ``data_launches``, on phase 8's under ``viz_launches``, on phase 9's under
-``variant_launches``, on phase 10's under ``baseline_launches``; K3's and K1's
+``variant_launches``, on phase 10's under ``baseline_launches``, on phase 11's
+under ``aux_launches``; K3's and K1's
 phase 1f cases under ``v3_shapes``, K3's phase 9f graph times under
 ``metro_stage_graph``); the last
 line is ``{"ok": true, "device": {...}}``. Needs no network and no JAX;
@@ -1605,6 +1625,9 @@ def main() -> int:
         **{f"reference/{k}": v for k, v in phase_baseline_reference(results).items()},
         **{f"bf16/{k}": v for k, v in phase_baseline_times(results).items()},
         "metro_reference": phase_metro_reference(results)}
+    # phase 11: CMR, the 2D pose models, the fitter and the bucketed KNN (no kernel of
+    # their own; their launches of K1-K10 are recorded, not asserted)
+    aux_paths = phase_aux(results)
     # phase 9's paths, each counted around its own run
     variant_paths = {**{f"{k}_serving": v for k, v in serving_v.items()},
                      **{f"{k}_train": v for k, v in train_v.items()},
@@ -1690,6 +1713,8 @@ def main() -> int:
         # training forward + backward (10c), all 0, and METRO's converter check (10d: K3
         # 24); recorded, not asserted
         e["baseline_launches"] = {path: n[e["name"]] for path, n in baseline_paths.items()}
+        # phase 11's: CMR, the pose models, the fitter and knn_points_bucketed
+        e["aux_launches"] = {path: n[e["name"]] for path, n in aux_paths.items()}
     # K3 and K1 at the shapes only the PtEmbedTRv3 decoder gives them (phases 1f, 9f)
     for name in ("dense_cross_attention", "fused_knn_vector_attention"):
         by_name[name]["v3_shapes"] = {
@@ -1717,6 +1742,9 @@ def main() -> int:
         default=float), flush=True)
     print(json.dumps({"baselines": {k: results[k] for k in (
         "baseline_parity", "baseline_reference", "baseline_times", "metro_reference")}},
+        default=float), flush=True)
+    print(json.dumps({"aux": {k: results[k] for k in (
+        "aux_cmr", "aux_pose2d", "aux_fit", "aux_knn_bucketed", "aux_seconds")}},
         default=float), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4569,6 +4597,356 @@ def phase_metro_reference(results, device="cuda", cfg=None, image=224, batch=2):
     results["metro_reference"] = dict(converted=len(converted), reference_keys=len(ref),
                                       dead=len(dead), same=same, launches=launches)
     return launches
+
+
+# phase 11: the auxiliary models, the MANO fitter and the bucketed KNN. None of them
+# reaches a TPU kernel in the JAX package; their launches of K1-K10 are counted and
+# printed as ``aux_launches`` (each should be 0)
+AUX_SPREAD_FACTOR = 5.0
+AUX_TOL = TOL[torch.float32]
+FIT_ERR_M = 0.015  # tests/test_fit.py's bound on the mean joint error after the fit
+
+
+def _outputs(out, prefix=""):
+    """A model's outputs as {name: tensor}: dict entries, list / tuple items by index."""
+    if isinstance(out, torch.Tensor):
+        return {prefix or "out": out}
+    items = out.items() if isinstance(out, dict) else enumerate(out)
+    flat = {}
+    for k, v in items:
+        flat.update(_outputs(v, f"{prefix}{k}" if isinstance(out, dict) else f"{prefix}[{k}]"))
+    return flat
+
+
+def _card_vs_cpu(name, model, inputs, device, seed):
+    """``model`` (float32, on the CPU) against a copy of it on ``device`` on the same
+    inputs, TF32 off: every output within the larger of 1e-4 of its peak and 5 times
+    the CPU's own spread when the first input moves by 1e-7 relative. Returns
+    (the CPU outputs, the card outputs, rows by output, launches of the card run)."""
+    import copy
+
+    nudge = 1.0 + 1e-7 * torch.from_numpy(np.random.RandomState(seed).randn(
+        *inputs[0].shape).astype(np.float32))
+    dev_model = copy.deepcopy(model).to(device)
+    with torch.inference_mode():
+        t = time.time()
+        want = _outputs(model(*inputs))
+        cpu_s = time.time() - t
+        nudged = _outputs(model(inputs[0] * nudge, *inputs[1:]))
+        reset_launches()
+        got = _outputs(dev_model(*(a.to(device) for a in inputs)))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    rows, bad = {}, []
+    for k, w in want.items():
+        g = got[k].float().cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {k}: shape {tuple(g.shape)} vs {tuple(w.shape)}, "
+                                 f"finite {bool(torch.isfinite(g).all())}")
+        err = float((g - w).abs().max())
+        spread = float((nudged[k] - w).abs().max())
+        peak = float(w.abs().max())
+        lim = max(AUX_TOL * peak, AUX_SPREAD_FACTOR * spread)
+        rows[k] = dict(max_abs_err=err, cpu_self=spread, peak=peak, limit=lim)
+        if not err <= lim:
+            bad.append(k)
+    log(f"  {name}: card vs cpu " + ", ".join(
+        f"{k} {r['max_abs_err']:.2e} (lim {r['limit']:.2e})" for k, r in rows.items())
+        + f"; cpu {cpu_s:.1f} s; launches "
+        + (", ".join(f"{k} {v}" for k, v in launches.items() if v) or "none"))
+    if bad:
+        raise AssertionError(f"{name}: card vs cpu over the limit in {bad}: "
+                             f"{ {k: rows[k] for k in bad} }")
+    del dev_model
+    return want, got, rows, launches
+
+
+def _time_forwards(name, model, make_input, buckets, dtype, device):
+    """bf16 (autocast over float32 parameters) or float32 forwards at each batch of
+    ``buckets``: CUDA events, median of 3 after a warm-up; peak GiB; launches."""
+    on_card = device.startswith("cuda")
+    model = model.to(device)
+    cast = torch.autocast(device_type="cuda" if on_card else "cpu", dtype=torch.bfloat16,
+                          enabled=dtype == "bf16")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = {}
+    with torch.inference_mode(), cast:
+        for b in buckets:
+            x = make_input(b).to(device)
+            runs = [time_cuda(lambda: model(x), iters=1, warmup=int(i == 0)) for i in range(3)]
+            rows[f"B{b}"] = dict(median_ms=float(np.median(runs)), runs_ms=runs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    launches = read_launches()
+    log(f"  {name} {dtype}: " + "; ".join(
+        f"{k} {r['median_ms']:.2f} ms ({', '.join(f'{t:.2f}' for t in r['runs_ms'])})"
+        for k, r in rows.items()) + f"; peak {peak:.2f} GiB")
+    return dict(requests=rows, peak_gib=peak), launches
+
+
+def _images(seed, B, size):
+    return torch.from_numpy(np.random.RandomState(seed).uniform(
+        -0.5, 0.5, (B, size, size, 3)).astype(np.float32))
+
+
+def phase_cmr(results, device="cuda", dtype="bf16", cfg=None, image=256, batch=4,
+              buckets=(1, 4), gamma=0.5):
+    """Phase 11a: CMR_G at full width (ResNet-18 trunks, OUT_CHANNELS (32, 64, 128,
+    256), attention on, with ``gamma`` set nonzero so the attention branch counts)
+    in float32, card against the port's CPU forward with the same weights, all five
+    outputs (the four mesh levels apart); then bf16 forwards at ``buckets``."""
+    from poem_v2_tpu_torch.models.cmr import create_cmr_model
+
+    log(f"phase 11a: CMR_G, {image} px, B{batch}: card vs CPU in float32, then {dtype} forwards")
+    model, _ = create_cmr_model(cfg, device="cpu")
+    with torch.no_grad():
+        model.attention.gamma.fill_(gamma)
+    _, _, rows, par_launches = _card_vs_cpu("CMR_G", model, (_images(90, batch, image),),
+                                            device, 91)
+    times, launches = _time_forwards("CMR_G", model, lambda b: _images(92, b, image), buckets,
+                                     dtype, device)
+    results["aux_cmr"] = dict(parity=rows, batch=batch, image=image, gamma=gamma, **times,
+                              card=gpu_line())
+    return {"parity": par_launches, "forwards": launches}
+
+
+def _darkpose_decode_check(hm_card, hm_cpu):
+    """``dark_decode`` on the card's heatmaps against the CPU's: equal to 1e-3 px, except
+    where the blurred CPU map's value at the card's argmax ties its maximum to 1e-5
+    relative (a near-tie that float32 rounding may flip). Returns (max |d| px over the
+    agreeing joints, the near-ties)."""
+    from poem_v2_tpu_torch.models.pose2d import dark_decode, gaussian_blur_reflect101
+
+    a, b = dark_decode(hm_card.float().cpu()), dark_decode(hm_cpu)
+    d = np.abs(a - b).max(-1)
+    ties = 0
+    for bi, j in zip(*np.nonzero(d > 1e-3)):
+        m = gaussian_blur_reflect101(hm_cpu[bi, j].double().numpy())
+        y, x = (int(round(v)) for v in (a[bi, j, 1], a[bi, j, 0]))
+        near = [m[yy, xx] for yy in range(max(y - 1, 0), min(y + 2, m.shape[0]))
+                for xx in range(max(x - 1, 0), min(x + 2, m.shape[1]))]
+        if max(near) < m.max() * (1 - 1e-5):
+            raise AssertionError(f"dark_decode: joint ({bi}, {j}) card {a[bi, j]} vs cpu "
+                                 f"{b[bi, j]} and no near-tie")
+        ties += 1
+    return float(d[d <= 1e-3].max()) if (d <= 1e-3).any() else 0.0, ties
+
+
+def phase_pose2d(results, device="cuda", dtype="bf16", image=256, batch=2, buckets=(1, 4),
+                 backbone=None, deconv=256, depth=64, hg=None):
+    """Phase 11b: IntegralPose on ResNet-50 (3 deconvs of ``deconv``) with its 2D
+    softmax head and a 3D head at ``depth`` depth bins, DarkPose on ResNet-50 with
+    ``dark_decode`` of the card's heatmaps against the CPU's, and HourglassBisected
+    (``hg``: 256 features, depth 4): float32 card against CPU at B``batch``, then
+    bf16 forwards at ``buckets``."""
+    from poem_v2_tpu_torch.models import pose2d
+    from poem_v2_tpu_torch.models.backbones.hourglass import HourglassBisected
+    from poem_v2_tpu_torch.models.poem import init_parameters
+
+    log(f"phase 11b: IntegralPose 2D / 3D, DarkPose, HourglassBisected at {image} px")
+    bb = backbone or {"TYPE": "resnet50", "NORM": "gn"}
+    head = {"TYPE": "IntegralDeconvHead", "NCLASSES": 21, "NUM_DECONV": 3,
+            "DECONV_FEATURES": deconv, "NORM_TYPE": "softmax"}
+    hg = hg or {"FEATURES": 256, "DEPTH": 4}
+    models = {
+        "integral_2d": pose2d.create_integral_pose({"BACKBONE": bb, "HEAD": head}, device="cpu"),
+        "integral_3d": pose2d.create_integral_pose(
+            {"BACKBONE": bb, "HEAD": {**head, "DEPTH_RESOLUTION": depth}}, device="cpu"),
+        "darkpose": pose2d.create_darkpose({"BACKBONE": bb}, device="cpu"),
+    }
+    hourglass = HourglassBisected.from_config(hg)
+    init_parameters(hourglass, torch.Generator().manual_seed(0))
+    models["hourglass"] = hourglass.eval()
+    out, launches = {}, {}
+    for i, (name, model) in enumerate(models.items()):
+        nchw = name == "hourglass"
+
+        def make(b, seed=93 + i):
+            x = _images(seed, b, image)
+            return x.permute(0, 3, 1, 2).contiguous() if nchw else x
+
+        want, got, rows, par = _card_vs_cpu(name, model, (make(batch),), device, 97 + i)
+        entry = dict(parity=rows)
+        if name == "darkpose":
+            err, ties = _darkpose_decode_check(got["heatmap"], want["heatmap"])
+            entry["dark_decode"] = dict(max_abs_px=err, near_ties=ties)
+            log(f"  dark_decode card vs cpu heatmaps: max {err:.2e} px, near-ties {ties}")
+        times, fwd = _time_forwards(name, model, make, buckets, dtype, device)
+        out[name] = {**entry, **times}
+        launches[f"{name}/parity"], launches[f"{name}/forwards"] = par, fwd
+        del model
+    results["aux_pose2d"] = dict(out, batch=batch, image=image, card=gpu_line())
+    return launches
+
+
+def fit_scenario(rs: np.random.RandomState, mano, B: int, V: int, image: int = 256):
+    """tests/test_fit.py's scenario for B frames of V views: a random pose (0.15 rad)
+    and shape (0.2) translated 0.55 m in front of view 0, seen by ``look_at_request``'s
+    cameras; the 2D targets are the exact projections. Arrays (target_2d, intr, extr,
+    joints, verts)."""
+    pose = torch.from_numpy(rs.randn(B, 48).astype(np.float32) * 0.15)
+    betas = torch.from_numpy(rs.randn(B, 10).astype(np.float32) * 0.2)
+    out = mano(pose, betas)
+    tsl = np.array([0.02, -0.01, 0.55], np.float32)
+    joints, verts = out.joints.numpy() + tsl, out.verts.numpy() + tsl
+    _, intr, extr = look_at_request(rs, B, V, image)
+    m2c = np.linalg.inv(extr)
+    j_cam = np.einsum("bvij,bnj->bvni", m2c[..., :3, :3], joints) + m2c[..., :3, 3][:, :, None]
+    proj = np.einsum("bvni,bvji->bvnj", j_cam, intr)
+    return (proj[..., :2] / proj[..., 2:]).astype(np.float32), intr, extr, joints, verts
+
+
+def phase_fit(results, device="cuda", batch=4, views=8, steps=400, lr=5e-2, silh_size=64,
+              silh_batch=2, silh_views=4, silh_steps=30):
+    """Phase 11c: the MANO fitter. (1) The objective and its gradient at the identity
+    init and at a random state, float32, card against CPU (loss 1e-5 relative, each
+    gradient 1e-4 of its peak); (2) tests/test_fit.py's scenario on the card, B
+    ``batch`` frames of ``views`` views, ``steps`` steps at ``lr`` with the 3D term:
+    the loss falls tenfold and the mean joint error ends under 1.5 cm; (3) one
+    ``OneFrameFitSilh`` run at S ``silh_size``: the silhouette loss falls."""
+    from poem_v2_tpu_torch.fit import OneFrameFit, OneFrameFitSilh
+    from poem_v2_tpu_torch.fit.frame_fit import FitParams, _init_params
+    from poem_v2_tpu_torch.fit.soft_raster import (multiview_silhouette_loss, project_to_raster,
+                                                   soft_silhouette)
+    from poem_v2_tpu_torch.mano.layer import ManoLayer
+
+    log(f"phase 11c: the MANO fitter, B{batch} of {views} views, {steps} steps")
+    mano = ManoLayer()
+    rs = np.random.RandomState(100)
+    target_2d, intr, extr, joints, _ = fit_scenario(rs, mano, batch, views)
+    mask = np.ones((batch, views), bool)
+    mask[-1, views // 2:] = False  # a frame with padded views
+    grads_out = {}
+    reset_launches()
+    for state in ("identity", "random"):
+        init = _init_params(batch)
+        if state == "random":
+            init = FitParams(init.quat + torch.from_numpy(rs.randn(batch, 16, 4).astype(
+                np.float32) * 0.3), torch.from_numpy(rs.randn(batch, 10).astype(np.float32)
+                                                     * 0.3), init.tsl)
+        init = init._replace(tsl=torch.from_numpy(joints.mean(1)))
+        per_dev = {}
+        for dev in ("cpu", device):
+            fitter = OneFrameFit(mano, lr=lr, steps=steps, w_joint3d=1.0, device=dev)
+            p = FitParams(*(a.detach().to(dev, copy=True).requires_grad_(True) for a in init))
+            args = [torch.from_numpy(a).to(dev) for a in (target_2d, intr, extr, mask)]
+            loss = fitter.loss(p, *args, torch.from_numpy(joints).to(dev))
+            loss.backward()
+            per_dev[dev] = (float(loss.detach()), [a.grad.cpu() for a in p])
+        (lc, gc), (lg, gg) = per_dev["cpu"], per_dev[device]
+        errs = [float((g - c).abs().max()) for g, c in zip(gg, gc)]
+        peaks = [float(c.abs().max()) for c in gc]
+        ok = (abs(lg - lc) <= 1e-5 * abs(lc) and all(torch.isfinite(g).all() for g in gg)
+              and all(e <= AUX_TOL * pk for e, pk in zip(errs, peaks)))
+        log(f"  {state}: loss card {lg:.7g} cpu {lc:.7g}; gradient error / peak (quat, shape, "
+            f"tsl) " + ", ".join(f"{e:.2e} / {pk:.2e}" for e, pk in zip(errs, peaks)))
+        if not ok:
+            raise AssertionError(f"fit objective at the {state} state: loss {lg} vs {lc}, "
+                                 f"gradient errors {errs} over peaks {peaks}")
+        grads_out[state] = dict(loss_card=lg, loss_cpu=lc, grad_err=errs, grad_peak=peaks)
+    grad_launches = read_launches()
+
+    fitter = OneFrameFit(mano, lr=lr, steps=steps, w_joint3d=1.0, device=device)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    res = fitter.fit(target_2d, intr, extr, mask, target_joints_3d=joints)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t
+    fit_launches = read_launches()
+    losses = res.losses.float().cpu().numpy()
+    err = float(np.linalg.norm(res.joints.float().cpu().numpy() - joints, axis=-1).mean())
+    log(f"  fit {steps} steps in {fit_s:.2f} s: loss {losses[0]:.5g} -> {losses[-1]:.5g}, "
+        f"mean joint error {err * 1e3:.3f} mm")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] * 0.1 and err < FIT_ERR_M):
+        raise AssertionError(f"fit: losses {losses[0]} -> {losses[-1]}, error {err} m")
+
+    target_s, intr_s, extr_s, joints_s, verts_s = fit_scenario(rs, mano, silh_batch,
+                                                                silh_views)
+    silh = OneFrameFitSilh(mano, lr=2e-2, steps=silh_steps, img_size=256, device=device)
+    faces = silh.faces
+
+    def dev_t(a):
+        return torch.as_tensor(a).to(device)
+
+    with torch.no_grad():  # the targets: the true hand's soft silhouettes
+        masks = soft_silhouette(project_to_raster(dev_t(verts_s), dev_t(intr_s), dev_t(extr_s),
+                                                  256, silh_size), faces, size=silh_size)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    res_s = silh.fit(target_s, intr_s, extr_s, target_joints_3d=joints_s, masks=masks)
+    torch.cuda.synchronize()
+    silh_s = time.time() - t
+    silh_launches = read_launches()
+    with torch.no_grad():
+        before = float(multiview_silhouette_loss(
+            dev_t(intr_s), dev_t(extr_s), dev_t(joints_s.mean(1, keepdims=True)).expand(
+                silh_batch, 778, 3), masks, faces, img_size=256))
+        after = float(multiview_silhouette_loss(dev_t(intr_s), dev_t(extr_s), res_s.verts,
+                                                masks, faces, img_size=256))
+    silh_losses = res_s.losses.float().cpu().numpy()
+    log(f"  silhouette fit S {silh_size}, B{silh_batch} of {silh_views} views, {silh_steps} "
+        f"steps in {silh_s:.2f} s: silhouette loss {before:.4f} -> {after:.4f}, objective "
+        f"{silh_losses[0]:.5g} -> {silh_losses[-1]:.5g}")
+    if not (np.isfinite(silh_losses).all() and after < before
+            and silh_losses[-1] < silh_losses[0]):
+        raise AssertionError(f"silhouette fit: {before} -> {after}, objective {silh_losses}")
+    results["aux_fit"] = dict(
+        objective=grads_out, fit=dict(batch=batch, views=views, steps=steps, seconds=fit_s,
+                                      loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                                      mean_joint_err_m=err),
+        silhouette=dict(size=silh_size, batch=silh_batch, views=silh_views, steps=silh_steps,
+                        seconds=silh_s, silhouette_before=before, silhouette_after=after),
+        card=gpu_line())
+    return {"objective": grad_launches, "fit": fit_launches, "silhouette_fit": silh_launches}
+
+
+def phase_knn_points_bucketed(results, device="cuda", B=8, Q=799, N=4096, k=32):
+    """Phase 11d: ``knn_points_bucketed`` on the 4096-point BPS cloud (the normalised
+    ball) for B``B`` x ``Q`` queries, some outside the table's margin: the same
+    indices and distances on the card as on the CPU; its time beside the brute-force
+    ``knn_points`` (CUDA events)."""
+    from poem_v2_tpu_torch.models.heads.ptemb_head import generate_bps_basis
+
+    log(f"phase 11d: knn_points_bucketed, B{B} x {Q} queries on {N} BPS points")
+    cloud = generate_bps_basis(N, 0.1) / 0.1
+    table = points.VoxelBucketTable(cloud, cell_size=0.25)
+    rs = np.random.RandomState(101)
+    q = rs.randn(B, Q, 3).astype(np.float32) * 0.5
+    q[0, :10] *= 3.0
+    want = points.knn_points_bucketed(torch.from_numpy(q), table, k)
+    qd = torch.from_numpy(q).to(device)
+    reset_launches()
+    got = points.knn_points_bucketed(qd, table, k)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same_idx = torch.equal(got[1].cpu(), want[1])
+    same_d = torch.equal(got[0].cpu(), want[0])
+    ms = time_cuda(lambda: points.knn_points_bucketed(qd, table, k))
+    cloud_d = torch.from_numpy(cloud.astype(np.float32)).to(device)[None].expand(B, N, 3)
+    brute_ms = time_cuda(lambda: points.knn_points(qd, cloud_d, k))
+    log(f"  indices identical {same_idx}, distances identical {same_d}; {ms:.3f} ms, "
+        f"brute-force knn_points {brute_ms:.3f} ms [{gpu_line()}]")
+    if not (same_idx and same_d):
+        raise AssertionError("knn_points_bucketed: the card's neighbours differ from the CPU's")
+    results["aux_knn_bucketed"] = dict(B=B, Q=Q, N=N, k=k, width=table.width, same_indices=True,
+                                       ms=ms, brute_force_ms=brute_ms, card=gpu_line())
+    return launches
+
+
+def phase_aux(results, device="cuda", dtype="bf16"):
+    """Phase 11: 11a-11d; returns their launches of K1-K10 by path."""
+    t = time.time()
+    paths = {**{f"cmr/{k}": v for k, v in phase_cmr(results, device, dtype).items()},
+             **{f"pose2d/{k}": v for k, v in phase_pose2d(results, device, dtype).items()},
+             **{f"fit/{k}": v for k, v in phase_fit(results, device).items()},
+             "knn_points_bucketed": phase_knn_points_bucketed(results, device)}
+    results["aux_seconds"] = time.time() - t
+    log(f"phase 11: {results['aux_seconds']:.1f} s")
+    return paths
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:

@@ -7,7 +7,10 @@ map is mechanical:
 
 * module segments keep their flax names, except the auto-named norms
   (``GroupNorm_i``, ``FrozenBatchNorm_i``, ``BatchNorm_i``) -> ``norm_i``;
-* ``kernel`` of rank 4 (conv HWIO) -> ``weight`` OIHW; of rank 2 (Dense
+* ``kernel`` of rank 4 (conv HWIO) -> ``weight`` OIHW, except under a
+  ``deconv{i}`` module (flax ``ConvTranspose``, padding "SAME"), whose
+  (kh, kw, in, out) kernel is flipped in space and laid out (in, out, kh, kw),
+  ``ConvTranspose2d``'s weight at stride 2, padding 1; of rank 2 (Dense
   (in, out)) -> ``weight`` (out, in), except ``w_ks`` / ``w_vs`` (RawDense),
   whose ``kernel`` stays (in, out) because the kernels take it as a matrix;
 * ``scale`` -> ``weight``; FrozenBatchNorm ``mean`` / ``var`` and BatchNorm
@@ -27,6 +30,7 @@ import numpy as np
 
 _AUTO_NORM = re.compile(r"^(?:GroupNorm|FrozenBatchNorm|BatchNorm)_(\d+)$")
 _RAW_KERNELS = ("w_ks", "w_vs")
+_DECONV = re.compile(r"^deconv\d+$")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -54,6 +58,8 @@ def torch_key(path: Tuple[str, ...], leaf: str, ndim: int) -> str:
 def convert_leaf(path: Tuple[str, ...], leaf: str, value) -> np.ndarray:
     a = np.asarray(value)
     if leaf == "kernel" and not (path and path[-1] in _RAW_KERNELS):
+        if a.ndim == 4 and path and _DECONV.match(path[-1]):
+            return np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
         if a.ndim == 4:
             return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
         if a.ndim == 2:

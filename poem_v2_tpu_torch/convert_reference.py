@@ -22,8 +22,8 @@ The baselines' tables come from the JAX converters of the same names:
 :func:`convert_petr_head`, :func:`convert_mvp_head` and
 :func:`convert_metro_network`. A packed ``nn.MultiheadAttention`` ``in_proj``
 maps to a tuple of port keys (q, k, v): :func:`apply_table` splits it into
-equal row blocks and :func:`table_to_reference` concatenates them back. ``cmr``
-waits for its model.
+equal row blocks and :func:`table_to_reference` concatenates them back. CMR's table
+(:func:`convert_cmr_network`) follows the JAX converter of the same name.
 """
 
 from __future__ import annotations
@@ -155,10 +155,11 @@ def convert_frozen_bn(b: _Builder, ref_prefix: str, path: List[str]) -> None:
 
 
 def convert_resnet_backbone(b: _Builder, prefix: str = "img_backbone.",
-                            arch: str = "resnet34") -> None:
-    """A torchvision-layout ResNet: conv1 / bn1, then per block conv{i} / bn{i} and
-    the downsample pair (``Conv_{n}`` / ``norm_{n}`` after the block's n convs)."""
-    bb = ["backbone"]
+                            arch: str = "resnet34", path: Sequence[str] = ("backbone",)) -> None:
+    """A torchvision-layout ResNet onto the trunk at ``path``: conv1 / bn1, then per
+    block conv{i} / bn{i} and the downsample pair (``Conv_{n}`` / ``norm_{n}`` after
+    the block's n convs)."""
+    bb = list(path)
     b.put(prefix + "conv1.weight", bb + ["stem_conv", "kernel"], "conv")
     convert_frozen_bn(b, prefix + "bn1", bb + ["stem_norm"])
     layers = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3)}[arch]
@@ -443,4 +444,36 @@ def convert_metro_network(port_keys: Iterable[str], prefix: str = "") -> Table:
         _put_linear(b, f"{t}residual.weight", blk + ["residual"])
     for name in ("upsampling", "cam_param_fc", "cam_param_fc2", "cam_param_fc3"):
         _put_linear(b, f"{prefix}{name}.weight", [name])
+    return b.table
+
+
+def convert_cmr_network(port_keys: Iterable[str], prefix: str = "",
+                        arch: str = "resnet18") -> Table:
+    """Table of a reference ``CMR_G`` onto the port's CMRG (build it with ``NORM:
+    frozen_bn`` so the BatchNorm statistics have a place): ``backbone`` (EncodeUV's
+    stem and stages) and ``backbone_mesh`` (EncodeMesh's stages, its three
+    ``reduce`` ConvBlocks and ``fc``), the two UV decoders (``uv_delayer{,2}.{0..3}``
+    and ``uv_head{,2}``), the latent ``attention`` (q / k / v and ``gamma``),
+    ``de_layers.0`` (the linear) and ``de_layers.{1..4}`` (each deblock's four
+    spiral Linears), and ``heads.{0..3}``."""
+    b = _Builder(port_keys)
+    convert_resnet_backbone(b, prefix + "backbone.", arch, path=("encode_uv",))
+    convert_resnet_backbone(b, prefix + "backbone_mesh.", arch, path=("encode_mesh",))
+    for i in range(3):
+        convert_conv_block(b, f"{prefix}backbone_mesh.reduce.{i}", ["encode_mesh", f"reduce_{i}"])
+    _put_linear(b, f"{prefix}backbone_mesh.fc.weight", ["encode_mesh", "fc"])
+    for dec, delayer, head in (("uv_decoder", "uv_delayer", "uv_head"),
+                               ("uv_decoder2", "uv_delayer2", "uv_head2")):
+        for i in range(4):
+            convert_conv_block(b, f"{prefix}{delayer}.{i}", [dec, f"ConvBlock_{i}"])
+        convert_conv_block(b, f"{prefix}{head}", [dec, "head"])
+    for lin in ("query_conv", "key_conv", "value_conv"):
+        _put_linear(b, f"{prefix}attention.{lin}.weight", ["attention", lin])
+    b.put(f"{prefix}attention.gamma", ["attention", "gamma"])
+    _put_linear(b, f"{prefix}de_layers.0.weight", ["de_linear"])
+    for i in _layer_indices(b.port_keys, r"deblock_(\d+)\."):
+        for conv in ("conv1", "conv_d3", "conv_2d3", "conv"):
+            _put_linear(b, f"{prefix}de_layers.{i}.{conv}.layer.weight",
+                        [f"deblock_{i}", conv, "Dense_0"])
+        _put_linear(b, f"{prefix}heads.{i - 1}.layer.weight", [f"heads_{i - 1}", "Dense_0"])
     return b.table

@@ -6,7 +6,11 @@ product, so it stays full float32 whatever the TF32 settings are.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
+
+from ..utils.misc import CONST
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -28,6 +32,12 @@ def cam_intr_projection(intr: torch.Tensor, points: torch.Tensor, eps: float = 1
     z = proj[..., 2:3]
     z = torch.where(z.abs() < eps, torch.full_like(z, eps), z)
     return proj[..., 0:2] / z
+
+
+def persp_project(points: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """Pinhole projection without the z clamp: (..., N, 3) x (..., 3, 3) -> (..., N, 2)."""
+    proj = (intr[..., None, :, :] * points[..., :, None, :]).sum(-1)
+    return proj[..., :2] / proj[..., 2:3]
 
 
 def invert_rigid(extr: torch.Tensor) -> torch.Tensor:
@@ -57,3 +67,49 @@ def mano_to_openpose(j_regressor: torch.Tensor, mano_verts: torch.Tensor) -> tor
     joints16 = (j_regressor[:, :, None] * mano_verts[..., None, :, :]).sum(-2)
     tips = mano_verts[..., [v[0] for _, v in sorted(MANO_KPID_2_VERTICES.items())], :]
     return torch.cat([joints16, tips], dim=-2)[..., MANO_TO_OPENPOSE, :]
+
+
+def _focal_centre(intr: torch.Tensor):
+    f = torch.stack([intr[..., 0, 0], intr[..., 1, 1]], dim=-1)[..., None, :]
+    c = torch.stack([intr[..., 0, 2], intr[..., 1, 2]], dim=-1)[..., None, :]
+    return f, c
+
+
+def xyz_to_uvd(xyz: torch.Tensor, root_joint: torch.Tensor, intr: torch.Tensor,
+               inp_res: Sequence[int], depth_range: float = CONST.UVD_DEPTH_RANGE,
+               ref_bone_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Camera-space xyz (..., N, 3) -> normalized uvd (..., N, 3): uv the pixel over
+    ``inp_res`` (w, h), d the depth from the root over the bone length, mapped so
+    that ``depth_range`` spans [0, 1] around 0.5."""
+    res = torch.as_tensor(inp_res, dtype=xyz.dtype, device=xyz.device)
+    if ref_bone_len is None:
+        ref_bone_len = torch.ones(xyz.shape[:-2] + (1,), dtype=xyz.dtype, device=xyz.device)
+    z = xyz[..., 2]
+    xy_ = xyz[..., :2] / z[..., None]
+    z_ = (z - root_joint[..., -1:]) / ref_bone_len
+    f, c = _focal_centre(intr)
+    uv = (xy_ * f + c) / res
+    return torch.cat([uv, (z_ / depth_range + 0.5)[..., None]], dim=-1)
+
+
+def uvd_to_xyz(uvd: torch.Tensor, root_joint: torch.Tensor, intr: torch.Tensor,
+               inp_res: Sequence[int], depth_range: float = CONST.UVD_DEPTH_RANGE,
+               ref_bone_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The inverse of :func:`xyz_to_uvd`: normalized uvd (..., N, 3) -> xyz (..., N, 3)."""
+    res = torch.as_tensor(inp_res, dtype=uvd.dtype, device=uvd.device)
+    if ref_bone_len is None:
+        ref_bone_len = torch.ones(uvd.shape[:-2] + (1,), dtype=uvd.dtype, device=uvd.device)
+    uv = uvd[..., :2] * res
+    z = (uvd[..., 2] - 0.5) * depth_range * ref_bone_len + root_joint[..., -1:]
+    f, c = _focal_centre(intr)
+    xy = (uv - c) / f * z[..., None]
+    return torch.cat([xy, z[..., None]], dim=-1)
+
+
+def ref_bone_len(joints: torch.Tensor, link=(0, 9)) -> torch.Tensor:
+    """Length of the chain ``link`` (default wrist -> middle MCP) of (..., J, 3), (..., 1)."""
+    total = torch.zeros(joints.shape[:-2] + (1,), dtype=joints.dtype, device=joints.device)
+    for a, b in zip(link[:-1], link[1:]):
+        total = total + torch.linalg.vector_norm(joints[..., a, :] - joints[..., b, :], dim=-1,
+                                                 keepdim=True)
+    return total

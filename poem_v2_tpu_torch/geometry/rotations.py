@@ -93,3 +93,20 @@ def rot6d_to_rotmat(rot6d: torch.Tensor) -> torch.Tensor:
 
 def rot6d_to_aa(rot6d: torch.Tensor) -> torch.Tensor:
     return rotmat_to_aa(rot6d_to_rotmat(rot6d))
+
+
+def rotmat_to_rot6d(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> 6D (..., 6): its first two rows."""
+    return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
+
+
+def aa_to_rot6d(axis_angle: torch.Tensor) -> torch.Tensor:
+    return rotmat_to_rot6d(aa_to_rotmat(axis_angle))
+
+
+def quat_to_rot6d(quat: torch.Tensor) -> torch.Tensor:
+    return rotmat_to_rot6d(quat_to_rotmat(quat))
+
+
+def rot6d_to_quat(rot6d: torch.Tensor) -> torch.Tensor:
+    return rotmat_to_quat(rot6d_to_rotmat(rot6d))

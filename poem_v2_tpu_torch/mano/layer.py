@@ -33,6 +33,7 @@ class ManoLayer:
     def __init__(self, model: Optional[ManoModel] = None, center_idx: Optional[int] = None):
         m = model if model is not None else default_mano()
         self.model = m
+        self.faces = m.faces
         self.center_idx = center_idx
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
         self.v_template = t(m.v_template)

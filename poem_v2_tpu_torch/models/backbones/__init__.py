@@ -1,1 +1,1 @@
-"""Backbones: the HRNet building blocks and HRNet."""
+"""Backbones: ResNet (with the HRNet building blocks), HRNet and the hourglass."""

@@ -182,7 +182,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     embeddings, U(0, 1) for the v1 heads' reference embedding, PETR's reference
     points and MVP's query table (the flax initialisers), other
     matrices at half the lecun-normal scale, zero biases, unit norm scales,
-    running statistics 0 / 1. At the full lecun scale the merge's cubic
+    running statistics 0 / 1; buffers outside the state dict are left as built. At the full lecun scale the merge's cubic
     product sends the decoded points metres away from the hand, where
     neighbour distances all but tie; half keeps them within centimetres."""
     bert = re.compile(r"\.(attn|cross_attn|ffn|layer\d+_attn|layer\d+_ffn)\.")
@@ -202,7 +202,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 fan_in = p.shape[0] if raw else int(np.prod(p.shape[1:]))
                 val = torch.randn(p.shape, generator=generator) * (0.5 / math.sqrt(fan_in))
             p.copy_(val.to(p.dtype))
+        state = set(model.state_dict(keep_vars=True))
         for name, b in model.named_buffers():
+            if name not in state:  # a constant of the module (CMR's spirals), not state
+                continue
             if name.endswith("running_var"):
                 b.fill_(1.0)
             else:

@@ -118,3 +118,59 @@ def build_balanced_buckets(points: np.ndarray, bucket_size: int = 128
     lo = np.stack([pts[leaf].min(0) for leaf in leaves]).astype(np.float32)
     hi = np.stack([pts[leaf].max(0) for leaf in leaves]).astype(np.float32)
     return perm, lo, hi
+
+
+class VoxelBucketTable:
+    """Host-built voxel candidate table for KNN against a static cloud (numpy, once
+    per cloud).
+
+    A uniform grid over the cloud's box widened by ``margin``; each cell keeps the
+    ``width`` cloud points nearest its centre (in ``np.argpartition``'s order). A
+    query ranks only its cell's list: its true K nearest are among them whenever
+    r_k(q) + |q - c| <= R_width(c), which holds on the BPS ball for queries within
+    ``margin`` of the cloud; farther queries get near neighbours."""
+
+    def __init__(self, cloud: np.ndarray, cell_size: float = 0.25, width: int = 768,
+                 margin: float = 0.6):
+        cloud = np.asarray(cloud, dtype=np.float32)
+        self.cloud = cloud
+        self.cell_size = float(cell_size)
+        self.origin = cloud.min(axis=0) - margin
+        extent = cloud.max(axis=0) + margin - self.origin
+        self.dims = np.maximum(np.ceil(extent / cell_size).astype(np.int64), 1)  # (3,)
+        self.width = int(min(width, cloud.shape[0]))
+
+        gx, gy, gz = [
+            self.origin[i] + (np.arange(self.dims[i]) + 0.5) * cell_size for i in range(3)
+        ]
+        centers = np.stack(np.meshgrid(gx, gy, gz, indexing="ij"), axis=-1).reshape(-1, 3)
+        d2 = ((centers[:, None] - cloud[None]) ** 2).sum(-1)  # (n_cells, N)
+        # candidate order within a cell is irrelevant (ranked at runtime)
+        self.table = np.argpartition(d2, self.width - 1, axis=1)[:, : self.width].astype(np.int32)
+
+
+def knn_points_bucketed(query: torch.Tensor, table: VoxelBucketTable, k: int,
+                        approx: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """KNN of query (B, Q, 3) against the static cloud behind ``table``, ranking only
+    the query's cell's candidates: (squared dists (B, Q, K), idx (B, Q, K) int64 cloud
+    indices, nn_xyz (B, Q, K, 3)), ascending.
+
+    Exact in both modes: ties go to the lowest position in the candidate list, as
+    ``lax.top_k`` breaks them. ``approx=True`` (the JAX function's ``approx_max_k``)
+    is accepted and ranks exactly too, as the port's other approximate-KNN switches
+    do."""
+    del approx
+    dev = query.device
+    cloud = torch.as_tensor(table.cloud, device=dev)
+    dims = table.dims
+    hi = torch.as_tensor(dims - 1, dtype=torch.int64, device=dev)
+    cell = torch.floor((query - torch.as_tensor(table.origin, device=dev)) / table.cell_size)
+    cell = torch.minimum(torch.clamp_min(cell.to(torch.int64), 0), hi)
+    flat = cell[..., 0] * int(dims[1] * dims[2]) + cell[..., 1] * int(dims[2]) + cell[..., 2]
+    cands = torch.as_tensor(table.table, device=dev).long()[flat]  # (B, Q, W)
+    diff = query[:, :, None] - cloud[cands]  # (B, Q, W, 3)
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    dist, pos = torch.sort(d2, dim=-1, stable=True)
+    idx = torch.gather(cands, -1, pos[..., :k])
+    return dist[..., :k], idx, cloud[idx]

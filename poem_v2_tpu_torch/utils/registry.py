@@ -1,6 +1,6 @@
 """Component registries (counterpart of ``poem_v2_tpu/utils/registry.py``), as far
-as the port needs them: the data layer's ``TRANSFORM`` and ``DATASET``, and
-``MODEL`` (METRO).
+as the port needs them: the data layer's ``TRANSFORM`` and ``DATASET``, and the
+models' ``MODEL``, ``HEAD``, ``BACKBONE``, ``TRANSFORMER`` and ``ATTENTION``.
 
 ``build_from_cfg`` keeps the JAX package's contract: look ``cfg.TYPE`` up, merge
 the extra keyword arguments (upper-cased) into a clone of ``cfg`` and call the
@@ -65,6 +65,7 @@ MODEL = Registry("model")
 ATTENTION = Registry("attention")
 TRANSFORMER = Registry("transformer")
 HEAD = Registry("head")
+BACKBONE = Registry("backbone")
 
 
 def build_transform(cfg: Config, **kwargs):

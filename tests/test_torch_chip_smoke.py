@@ -513,3 +513,33 @@ def test_phase_10_rehearsal(on_cpu, one_thread):
         "baseline_parity", "baseline_reference", "baseline_times", "metro_reference")}},
         default=float)
 
+
+
+def test_phase_11_rehearsal(on_cpu, one_thread):
+    """Phase 11 on the CPU at small sizes: CMR_G (full width, 64 px, B1), the pose
+    models on ResNet-18 with narrow deconvs and a depth-1 hourglass, the fitter (its
+    objective on both "devices", the test_fit scenario at B1 of 2 views, a short
+    silhouette fit at S 16) and the bucketed KNN; none launches a kernel."""
+    results = {}
+    zeros = {k: 0 for k in chip_smoke.KERNELS}
+    cmr = chip_smoke.phase_cmr(results, device="cpu", dtype="fp32", image=64, batch=1,
+                               buckets=(1,))
+    pose = chip_smoke.phase_pose2d(results, device="cpu", dtype="fp32", image=64, batch=1,
+                                   buckets=(1,), backbone={"TYPE": "resnet18", "NORM": "gn"},
+                                   deconv=16, depth=4, hg={"FEATURES": 16, "DEPTH": 1})
+    fit = chip_smoke.phase_fit(results, device="cpu", batch=1, views=2, silh_size=16,
+                               silh_batch=1, silh_views=2, silh_steps=5)
+    knn = chip_smoke.phase_knn_points_bucketed(results, device="cpu", B=1, Q=50, N=512)
+    for d in (cmr, pose, fit):
+        assert all(v == zeros for v in d.values()), d
+    assert knn == zeros
+    assert set(results["aux_cmr"]["parity"]) == {
+        "pred_verts_3d_rel", "uv_pred", "mask_pred", "uv_prior"} | {
+        f"mesh_pred[{i}]" for i in range(4)}
+    assert all(r["max_abs_err"] == 0.0 for r in results["aux_cmr"]["parity"].values())
+    assert set(results["aux_pose2d"]) >= {"integral_2d", "integral_3d", "darkpose", "hourglass"}
+    assert results["aux_pose2d"]["darkpose"]["dark_decode"] == dict(max_abs_px=0.0, near_ties=0)
+    assert results["aux_fit"]["fit"]["mean_joint_err_m"] < chip_smoke.FIT_ERR_M
+    assert results["aux_knn_bucketed"]["same_indices"]
+    json.dumps({"aux": {k: results[k] for k in (
+        "aux_cmr", "aux_pose2d", "aux_fit", "aux_knn_bucketed")}}, default=float)

@@ -257,3 +257,50 @@ def test_baseline_modules_stand_alone(module, factory, cfg):
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           env=env, timeout=300, cwd=os.path.dirname(PKG))
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+_AUX_SCRIPT = r"""
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %(forbidden)r:
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import torch
+mod = importlib.import_module(%(module)r)
+leaked = [k for k in sys.modules if k.split(".")[0] in %(forbidden)r]
+assert not leaked, leaked
+if %(call)r and not torch.cuda.is_available():
+    try:
+        eval(%(call)r, {"mod": mod})
+    except RuntimeError as e:
+        assert "CUDA" in str(e) and 'device="cpu"' in str(e), e
+    else:
+        raise AssertionError("built on the default device without a card")
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("module,call", [
+    ("poem_v2_tpu_torch.models.cmr", "mod.create_cmr_model()"),
+    ("poem_v2_tpu_torch.models.pose2d", "mod.create_integral_pose({'BACKBONE': {'TYPE': "
+     "'resnet18'}, 'HEAD': {}})"),
+    ("poem_v2_tpu_torch.models.pose2d", "mod.create_darkpose({'BACKBONE': {'TYPE': 'resnet18'}})"),
+    ("poem_v2_tpu_torch.models.backbones.hourglass", ""),
+    ("poem_v2_tpu_torch.fit", "mod.OneFrameFit()"),
+    ("poem_v2_tpu_torch.fit", "mod.OneFrameFitSilh()"),
+    ("poem_v2_tpu_torch.ops.points", ""),
+    ("poem_v2_tpu_torch.geometry.camera", ""),
+])
+def test_aux_modules_stand_alone(module, call):
+    """CMR, the pose models, the hourglass, the fitter and the bucketed KNN import
+    alone with JAX, flax, optax, PyYAML and the JAX package blocked; the factories
+    and fitters target the card by default and, without one, raise."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    script = _AUX_SCRIPT % {"forbidden": FORBIDDEN, "module": module, "call": call}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=env, timeout=300, cwd=os.path.dirname(PKG))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
