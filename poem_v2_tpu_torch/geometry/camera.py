@@ -11,6 +11,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..utils.misc import CONST
+from ..utils.profiling import sync_point
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -46,7 +47,8 @@ def invert_rigid(extr: torch.Tensor) -> torch.Tensor:
     t = extr[..., :3, 3]
     t_new = -(rot_t * t[..., None, :]).sum(-1)
     top = torch.cat([rot_t, t_new[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extr.dtype, device=extr.device)
+    with sync_point("invert_rigid", extr.device):  # a blocking copy
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extr.dtype, device=extr.device)
     bottom = bottom.expand(extr.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

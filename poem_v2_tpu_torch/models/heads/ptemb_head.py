@@ -32,6 +32,7 @@ from ..bricks.attention import MLP
 from ..decoder import PtEmbedDecoder
 from ..frustum import FrustumPositionEncoder
 from ..positional import sine_positional_encoding_3d_factors
+from ...utils.profiling import span, sync_point
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -101,7 +102,9 @@ def scramble_views(a_flat: torch.Tensor, n_val: torch.Tensor, fused: bool = Fals
     later data and are masked out by the merge): with ``fused`` (eval) by
     kernel K5 on the card, else by the differentiable plain gather."""
     B, V, C, NS = a_flat.shape
-    if bool((n_val == V).all()):
+    with sync_point("scramble_check", n_val.device):  # a read of a device value
+        uniform = bool((n_val == V).all())
+    if uniform:
         return a_flat.reshape(B, NS, V, C)
     gather = scrambled_merge_gather if fused else plain_scrambled_merge_gather
     return gather(a_flat.reshape(B, V * NS * C), n_val, V, C)
@@ -186,51 +189,56 @@ class POEMGeneralizedHead(nn.Module):
         c = self.consts(mlvl_feat.device)
         dt = self.input_proj.weight.dtype
 
-        w = self.input_proj.weight[:, :, 0, 0]
-        x = torch.nn.functional.linear(mlvl_feat.to(dt), w, self.input_proj.bias)
-        sin = self.adapt_pos3d(*sine_positional_encoding_3d_factors(
-            view_mask, H, W, num_feats=self.pe_num_feats))
-        if self.petr_embedding:
-            sin = sin + self.position_encoder(cam_intr, cam_extr, (H, W), inp_res)[0]
-        x = x + sin
+        with span("embed"):
+            w = self.input_proj.weight[:, :, 0, 0]
+            x = torch.nn.functional.linear(mlvl_feat.to(dt), w, self.input_proj.bias)
+            sin = self.adapt_pos3d(*sine_positional_encoding_3d_factors(
+                view_mask, H, W, num_feats=self.pe_num_feats))
+            if self.petr_embedding:
+                sin = sin + self.position_encoder(cam_intr, cam_extr, (H, W), inp_res)[0]
+            x = x + sin
 
-        ref_center = ref_joints[:, self.center_idx].float()
-        bps_world = c["bps"][None] + ref_center[:, None]
-        proj = project_world_to_pixel(bps_world, cam_extr.float(), cam_intr.float())
-        grid = pixel_to_grid(proj, inp_res).reshape(B * V, NS, 2)
-        if self.training:
-            cdt = _compute_dtype(x)
-            feats_flat = grid_sample_points_matmul(x.reshape(B * V, H, W, C).to(cdt),
-                                                   grid.to(cdt))
-        else:
-            feats_flat = grid_sample_points(x.reshape(B * V, H, W, C), grid)
-        bps_feats = feats_flat.reshape(B, V, NS, C)
+        with span("sample"):
+            ref_center = ref_joints[:, self.center_idx].float()
+            bps_world = c["bps"][None] + ref_center[:, None]
+            proj = project_world_to_pixel(bps_world, cam_extr.float(), cam_intr.float())
+            grid = pixel_to_grid(proj, inp_res).reshape(B * V, NS, 2)
+            if self.training:
+                cdt = _compute_dtype(x)
+                feats_flat = grid_sample_points_matmul(x.reshape(B * V, H, W, C).to(cdt),
+                                                       grid.to(cdt))
+            else:
+                feats_flat = grid_sample_points(x.reshape(B * V, H, W, C), grid)
+            bps_feats = feats_flat.reshape(B, V, NS, C)
         n_val = view_mask.to(torch.int64).sum(1)
         scr = scramble_views(bps_feats.transpose(2, 3), n_val, fused=not self.training)
-        merged = self.merge_feature(scr.transpose(1, 2), view_mask)
+        with span("merge"):
+            merged = self.merge_feature(scr.transpose(1, 2), view_mask)
 
-        query_feat = self.query_feat_embedding[None].expand(B, -1, -1)
-        pt_xyz = (c["bps"] / self.radius)[None].expand(B, NS, 3)
-        query_xyz = (c["template"] / self.radius)[None].expand(B, -1, 3)
-        if self.decoder_type == "PtEmbedTRv3":
-            coords = self.transformer(pt_xyz, merged, query_xyz, query_feat, x, view_mask,
-                                      cam_intr, cam_extr, ref_center, self.radius, inp_res)
+        with span("decoder"):
+            query_feat = self.query_feat_embedding[None].expand(B, -1, -1)
+            pt_xyz = (c["bps"] / self.radius)[None].expand(B, NS, 3)
+            query_xyz = (c["template"] / self.radius)[None].expand(B, -1, 3)
+            if self.decoder_type == "PtEmbedTRv3":
+                coords = self.transformer(pt_xyz, merged, query_xyz, query_feat, x, view_mask,
+                                          cam_intr, cam_extr, ref_center, self.radius, inp_res)
+                coords = torch.nan_to_num(coords.float())
+                return {"all_coords_preds": coords * self.radius + ref_center[None, :, None, :]}
+            coords, pose6d, shape = self.transformer(
+                query_xyz, query_feat, pt_xyz, merged, c["q_anchor_idx"], c["pt_anchor_idx"],
+                c.get("anchor_xyz"))
             coords = torch.nan_to_num(coords.float())
-            return {"all_coords_preds": coords * self.radius + ref_center[None, :, None, :]}
-        coords, pose6d, shape = self.transformer(
-            query_xyz, query_feat, pt_xyz, merged, c["q_anchor_idx"], c["pt_anchor_idx"],
-            c.get("anchor_xyz"))
-        coords = torch.nan_to_num(coords.float())
-        centre = ref_center[None, :, None, :]
-        if not self.parametric_output:
-            return {"all_coords_preds": coords * self.radius + centre}
-        # intermediate blocks are normalised; the final block is replaced by the
-        # MANO surface (metres, centred at the reference joint) plus the centre.
-        # Rotations and LBS stay float32, outside any autocast
-        with torch.autocast(mlvl_feat.device.type, enabled=False):
-            pose_aa = rot6d_to_aa(pose6d.float().reshape(B, 16, 6)).reshape(B, 48)
-            mano_out = self.mano_layer(pose_aa, shape.float())
-        mano_mesh = torch.cat([mano_out.joints, mano_out.verts], dim=1)  # (B, 799, 3)
-        all_coords = torch.cat([coords[:-1] * self.radius + centre, mano_mesh[None] + centre], 0)
-        return {"all_coords_preds": all_coords, "pred_pose": pose_aa.reshape(B, 16, 3),
-                "pred_shape": shape.float()}
+            centre = ref_center[None, :, None, :]
+            if not self.parametric_output:
+                return {"all_coords_preds": coords * self.radius + centre}
+            # intermediate blocks are normalised; the final block is replaced by the
+            # MANO surface (metres, centred at the reference joint) plus the centre.
+            # Rotations and LBS stay float32, outside any autocast
+            with torch.autocast(mlvl_feat.device.type, enabled=False):
+                pose_aa = rot6d_to_aa(pose6d.float().reshape(B, 16, 6)).reshape(B, 48)
+                mano_out = self.mano_layer(pose_aa, shape.float())
+            mano_mesh = torch.cat([mano_out.joints, mano_out.verts], dim=1)  # (B, 799, 3)
+            all_coords = torch.cat([coords[:-1] * self.radius + centre, mano_mesh[None] + centre],
+                                   0)
+            return {"all_coords_preds": all_coords, "pred_pose": pose_aa.reshape(B, 16, 3),
+                    "pred_shape": shape.float()}

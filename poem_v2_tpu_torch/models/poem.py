@@ -30,6 +30,7 @@ from ..geometry.heatmap import integral_heatmap2d, normalize_heatmap
 from ..geometry.triangulation import triangulate_dlt
 from ..mano.layer import ManoLayer
 from ..ops.points import farthest_point_sampling
+from ..utils.profiling import span, sync_point
 from .backbones.hrnet import HRNet
 from .backbones.resnet import ResNet
 from .heads.ptemb_head import POEMGeneralizedHead, generate_bps_basis
@@ -95,15 +96,20 @@ class POEMNet(nn.Module):
         B, V, H, W, _ = images.shape
         dt = self.head.input_proj.weight.dtype
         imgs = images.reshape(B * V, H, W, 3).to(dt).permute(0, 3, 1, 2)
-        feats = self.backbone(imgs)
+        with span("backbone"):
+            feats = self.backbone(imgs)
         pyramid = ([feats[f"res_layer{i}"] for i in range(1, 5)] if isinstance(feats, dict)
                    else feats)
-        mlvl = self.feat_neck(pyramid).permute(0, 2, 3, 1)      # (BV, h, w, C)
-        uv_hmap = self.uv_neck(pyramid)                          # (BV, 21, 32, 32)
+        with span("feat_neck"):
+            mlvl = self.feat_neck(pyramid).permute(0, 2, 3, 1)  # (BV, h, w, C)
+        with span("uv_neck"):
+            uv_hmap = self.uv_neck(pyramid)                      # (BV, 21, 32, 32)
 
-        uv_coord = integral_heatmap2d(normalize_heatmap(uv_hmap.float()))
-        scale = torch.tensor([W, H], dtype=torch.float32, device=images.device)
-        uv_coord_im = (uv_coord * scale).reshape(B, V, self.num_joints, 2)
+        with span("joints2d"):
+            uv_coord = integral_heatmap2d(normalize_heatmap(uv_hmap.float()))
+            with sync_point("pixel_scale", images.device):  # a blocking copy
+                scale = torch.tensor([W, H], dtype=torch.float32, device=images.device)
+            uv_coord_im = (uv_coord * scale).reshape(B, V, self.num_joints, 2)
 
         if self.training:
             if master_joints_3d is None or ref_draws is None:
@@ -112,17 +118,20 @@ class POEMNet(nn.Module):
                 master_joints_3d, tuple(d.to(images.device) for d in ref_draws),
                 self.ref_noise, self.center_idx)
         elif master_joints_3d is not None:
-            tri = triangulate_dlt(uv_coord_im, cam_intr.float(),
-                                  invert_rigid(cam_extr.float()), view_mask)
+            with span("triangulate"):
+                tri = triangulate_dlt(uv_coord_im, cam_intr.float(),
+                                      invert_rigid(cam_extr.float()), view_mask)
             n_views = view_mask.float().sum(1)
             ref_joints = torch.where((n_views <= 1.0)[:, None, None],
                                      master_joints_3d.float(), tri)
         else:
-            ref_joints = triangulate_dlt(uv_coord_im, cam_intr.float(),
-                                         invert_rigid(cam_extr.float()), view_mask)
+            with span("triangulate"):
+                ref_joints = triangulate_dlt(uv_coord_im, cam_intr.float(),
+                                             invert_rigid(cam_extr.float()), view_mask)
 
-        preds = dict(self.head(mlvl.reshape(B, V, *mlvl.shape[1:]), view_mask, cam_intr,
-                               cam_extr, ref_joints, inp_res=(W, H)))
+        with span("head"):
+            preds = dict(self.head(mlvl.reshape(B, V, *mlvl.shape[1:]), view_mask, cam_intr,
+                                   cam_extr, ref_joints, inp_res=(W, H)))
         all_coords = preds["all_coords_preds"]
         joints = all_coords[-1, :, :self.num_joints]
         verts = all_coords[-1, :, self.num_joints:]
@@ -246,60 +255,66 @@ def create_poem_model(cfg: dict, dtype: torch.dtype = torch.float32,
     center = tr_cfg.get("TRANSFORMER_CENTER_IDX", 9)
     parametric = bool(tr_cfg.get("PARAMETRIC_OUTPUT", False))
 
-    bps, anchor_xyz, anchor_idx = load_static_assets(head_cfg, nsample, radius)
-    mano_layer = ManoLayer(center_idx=center)
-    mano_out = mano_layer(torch.zeros(1, 48), torch.zeros(1, 10))
-    template = torch.cat([mano_out.joints, mano_out.verts], 1)[0].numpy()  # (799, 3)
-    if anchor_idx is not None:
-        q_anchor_idx = pt_anchor_idx = anchor_idx
-    else:
-        _, pt_anchor_idx = farthest_point_sampling(torch.from_numpy(bps[None] / radius), 32)
-        _, q_anchor_idx = farthest_point_sampling(torch.from_numpy(template[None] / radius), 32)
-        pt_anchor_idx, q_anchor_idx = pt_anchor_idx[0].numpy(), q_anchor_idx[0].numpy()
+    with span("build"):
+        with span("assets"):
+            bps, anchor_xyz, anchor_idx = load_static_assets(head_cfg, nsample, radius)
+            mano_layer = ManoLayer(center_idx=center)
+            mano_out = mano_layer(torch.zeros(1, 48), torch.zeros(1, 10))
+            template = torch.cat([mano_out.joints, mano_out.verts], 1)[0].numpy()  # (799, 3)
+            if anchor_idx is not None:
+                q_anchor_idx = pt_anchor_idx = anchor_idx
+            else:
+                _, pt_anchor_idx = farthest_point_sampling(
+                    torch.from_numpy(bps[None] / radius), 32)
+                _, q_anchor_idx = farthest_point_sampling(
+                    torch.from_numpy(template[None] / radius), 32)
+                pt_anchor_idx, q_anchor_idx = pt_anchor_idx[0].numpy(), q_anchor_idx[0].numpy()
 
-    with torch.device("meta"):
-        if bb_type == "HRNet":
-            backbone = HRNet.from_config(bb_cfg)
-            feat_size = backbone.stage4_channels
-            feat_neck = HRNetFeatNeck(feat_size, norm=norm)
-        else:
-            backbone = ResNet(arch=bb_type.lower(), norm=norm)
-            feat_size = backbone.feat_size
-            feat_neck = ResNetFeatNeck(feat_size, norm=norm)
-        model = POEMNet(
-            backbone, feat_neck,
-            UVDecodeNeck(feat_size, hrnet=bb_type == "HRNet", norm=norm),
-            POEMGeneralizedHead(
-                embed_dims=head_cfg["EMBED_DIMS"], pt_feat_dim=head_cfg["POINTS_FEAT_DIM"],
-                # the feature neck's width, which the flax head takes from its input
-                # (the shipped configs set ``IN_CHANNELS`` to the same number)
-                in_channels=feat_size[2], num_query=head_cfg["NUM_QUERY"],
-                nsample=nsample, radius=radius,
-                pe_num_feats=head_cfg["POSITIONAL_ENCODING"]["NUM_FEATS"], center_idx=center,
-                bps_basis=bps, template_mesh=template, query_anchor_idx=q_anchor_idx,
-                pt_anchor_idx=pt_anchor_idx, anchor_xyz=anchor_xyz,
-                n_blocks=tr_cfg["N_BLOCKS"], num_heads=tr_cfg["NUM_ATTENTION_HEADS"],
-                n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"],
-                dropout=tr_cfg.get("DROPOUT", 0.1), parametric_output=parametric,
-                mano_layer=mano_layer if parametric else None, use_flash_train=use_flash_train,
-                petr_embedding=bool(head_cfg.get("PETR_EMBEDDING", False)),
-                depth_num=head_cfg.get("DEPTH_NUM", 32),
-                depth_start=head_cfg.get("DEPTH_START", 0.0),
-                depth_end=head_cfg.get("DEPTH_END", 1.2), lid=head_cfg.get("LID", False),
-                position_range=tuple(head_cfg.get("POSITION_RANGE",
-                                                  (-0.6, -0.6, 0.0, 0.6, 0.6, 1.2))),
-                decoder_type=("PtEmbedTRv3" if tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3"
-                              else "PtEmbedTR")),
-            num_joints=cfg.get("DATA_PRESET", {}).get("NUM_JOINTS", 21),
-            center_idx=cfg.get("DATA_PRESET", {}).get("CENTER_IDX", 0),
-            ref_noise=float(cfg.get("REF_NOISE", 0.01)),
-            compute_dtype=dtype if param_dtype not in (None, dtype) else None,
-        )
-    model = model.to_empty(device="cpu")
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    init_parameters(model, generator)
-    model = model.to(device=device, dtype=param_dtype or dtype).eval()
+        with torch.device("meta"):
+            if bb_type == "HRNet":
+                backbone = HRNet.from_config(bb_cfg)
+                feat_size = backbone.stage4_channels
+                feat_neck = HRNetFeatNeck(feat_size, norm=norm)
+            else:
+                backbone = ResNet(arch=bb_type.lower(), norm=norm)
+                feat_size = backbone.feat_size
+                feat_neck = ResNetFeatNeck(feat_size, norm=norm)
+            model = POEMNet(
+                backbone, feat_neck,
+                UVDecodeNeck(feat_size, hrnet=bb_type == "HRNet", norm=norm),
+                POEMGeneralizedHead(
+                    embed_dims=head_cfg["EMBED_DIMS"], pt_feat_dim=head_cfg["POINTS_FEAT_DIM"],
+                    # the feature neck's width, which the flax head takes from its input
+                    # (the shipped configs set ``IN_CHANNELS`` to the same number)
+                    in_channels=feat_size[2], num_query=head_cfg["NUM_QUERY"],
+                    nsample=nsample, radius=radius,
+                    pe_num_feats=head_cfg["POSITIONAL_ENCODING"]["NUM_FEATS"], center_idx=center,
+                    bps_basis=bps, template_mesh=template, query_anchor_idx=q_anchor_idx,
+                    pt_anchor_idx=pt_anchor_idx, anchor_xyz=anchor_xyz,
+                    n_blocks=tr_cfg["N_BLOCKS"], num_heads=tr_cfg["NUM_ATTENTION_HEADS"],
+                    n_neighbor=tr_cfg["N_NEIGHBOR"], n_neighbor_query=tr_cfg["N_NEIGHBOR_QUERY"],
+                    dropout=tr_cfg.get("DROPOUT", 0.1), parametric_output=parametric,
+                    mano_layer=mano_layer if parametric else None, use_flash_train=use_flash_train,
+                    petr_embedding=bool(head_cfg.get("PETR_EMBEDDING", False)),
+                    depth_num=head_cfg.get("DEPTH_NUM", 32),
+                    depth_start=head_cfg.get("DEPTH_START", 0.0),
+                    depth_end=head_cfg.get("DEPTH_END", 1.2), lid=head_cfg.get("LID", False),
+                    position_range=tuple(head_cfg.get("POSITION_RANGE",
+                                                      (-0.6, -0.6, 0.0, 0.6, 0.6, 1.2))),
+                    decoder_type=("PtEmbedTRv3" if tr_cfg.get("TYPE", "PtEmbedTR") == "PtEmbedTRv3"
+                                  else "PtEmbedTR")),
+                num_joints=cfg.get("DATA_PRESET", {}).get("NUM_JOINTS", 21),
+                center_idx=cfg.get("DATA_PRESET", {}).get("CENTER_IDX", 0),
+                ref_noise=float(cfg.get("REF_NOISE", 0.01)),
+                compute_dtype=dtype if param_dtype not in (None, dtype) else None,
+            )
+        with span("init"):
+            model = model.to_empty(device="cpu")
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            init_parameters(model, generator)
+        with span("to_device"):
+            model = model.to(device=device, dtype=param_dtype or dtype).eval()
     aux = {"bps_basis": bps, "template_mesh": template, "transformer_center_idx": center,
            "parametric_output": parametric, "j_regressor": mano_layer.j_regressor}
     return model, aux

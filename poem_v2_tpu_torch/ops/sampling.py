@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import sync_point
+
 
 def grid_sample_points_matmul(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of ``feat`` (B, H, W, C) at ``coords`` (B, N, 2) in [-1, 1]
@@ -78,5 +80,6 @@ def grid_sample_points(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor
 
 def pixel_to_grid(uv: torch.Tensor, inp_res) -> torch.Tensor:
     """Pixel coords (..., 2) -> [-1, 1] grid coords: uv / inp_res * 2 - 1."""
-    res = torch.tensor(inp_res, dtype=uv.dtype, device=uv.device)
+    with sync_point("pixel_to_grid", uv.device):  # a blocking copy
+        res = torch.tensor(inp_res, dtype=uv.dtype, device=uv.device)
     return uv / res * 2.0 - 1.0

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.poem import create_poem_model
+from ..utils.profiling import span, sync_point
 from ..utils.recorder import Recorder
 
 
@@ -135,21 +136,29 @@ class Predictor:
                  view_mask: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """images (B, V, H, W, 3) uint8 or float in [-0.5, 0.5]; cameras (B, V, 3, 3) and
         (B, V, 4, 4) camera->master; optional (B, V) mask. Returns host float32 arrays."""
-        B, V = np.shape(images)[:2]
-        images, view_mask, cam_intr, cam_extr = self.pad(images, cam_intr, cam_extr, view_mask)
-        dev = self.device
-        img = torch.as_tensor(images).to(dev)
-        if img.dtype == torch.uint8:
-            img = img.float() / 255.0 - 0.5
-        preds = self.model(
-            img.float(), torch.as_tensor(view_mask).to(dev),
-            torch.as_tensor(cam_intr).to(dev), torch.as_tensor(cam_extr).to(dev),
-            torch.zeros((images.shape[0], 21, 3), dtype=torch.float32, device=dev))
-        host = lambda k: preds[k].float().cpu().numpy()
-        return {
-            "joints_3d": host("pred_joints_3d")[:B],
-            "verts_3d": host("pred_verts_3d")[:B],
-            "joints_3d_rel": host("pred_joints_3d_rel")[:B],
-            "verts_3d_rel": host("pred_verts_3d_rel")[:B],
-            "joints_uv": host("pred_joints_uv")[:B, :V],
-        }
+        with span("request", request=True):
+            B, V = np.shape(images)[:2]
+            with span("pad"):
+                images, view_mask, cam_intr, cam_extr = self.pad(images, cam_intr, cam_extr,
+                                                                 view_mask)
+            dev = self.device
+            with sync_point("h2d", dev, 4):  # four blocking copies
+                img = torch.as_tensor(images).to(dev)
+                if img.dtype == torch.uint8:
+                    img = img.float() / 255.0 - 0.5
+                mask_d = torch.as_tensor(view_mask).to(dev)
+                intr_d = torch.as_tensor(cam_intr).to(dev)
+                extr_d = torch.as_tensor(cam_extr).to(dev)
+            with span("forward"):
+                preds = self.model(
+                    img.float(), mask_d, intr_d, extr_d,
+                    torch.zeros((images.shape[0], 21, 3), dtype=torch.float32, device=dev))
+            with sync_point("readback", dev, 5):  # one blocking copy an output
+                host = lambda k: preds[k].float().cpu().numpy()
+                return {
+                    "joints_3d": host("pred_joints_3d")[:B],
+                    "verts_3d": host("pred_verts_3d")[:B],
+                    "joints_3d_rel": host("pred_joints_3d_rel")[:B],
+                    "verts_3d_rel": host("pred_verts_3d_rel")[:B],
+                    "joints_uv": host("pred_joints_uv")[:B, :V],
+                }

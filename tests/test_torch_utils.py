@@ -1,21 +1,19 @@
 """The port's small utilities against the JAX package's: ``utils/misc.py``
 (``CONST``, ``param_size``, ``singleton``), ``utils/etqdm.py`` (the plain progress
-line) and ``utils/profiling.py`` (``trace`` on torch.profiler, ``StepTimer``)."""
+line) and ``utils/profiling.py`` (``trace`` on torch.profiler)."""
 
 import io
 import json
 import os
-import time
 
 import numpy as np
 import pytest
 import torch
 
 from poem_v2_tpu.utils import misc as jmisc
-from poem_v2_tpu.utils.profiling import StepTimer as JStepTimer
 from poem_v2_tpu_torch.utils import misc as tmisc
 from poem_v2_tpu_torch.utils.etqdm import _PlainProgress, etqdm
-from poem_v2_tpu_torch.utils.profiling import StepTimer, trace
+from poem_v2_tpu_torch.utils.profiling import trace
 
 
 def test_const_equals_jax_and_is_immutable():
@@ -51,18 +49,6 @@ def test_plain_progress_line():
     assert all(ln.endswith(" it/s)") for ln in lines)
     # tqdm's keywords are taken and ignored; a generator has no total
     assert sum(etqdm((i for i in range(5)), desc="x", dynamic_ncols=True, leave=False)) == 10
-
-
-def test_step_timer_matches_jax():
-    got, want = StepTimer(window=3), JStepTimer(window=3)
-    assert got.mean_step_time == want.mean_step_time == 0.0
-    assert got.throughput(8) == want.throughput(8) == 0.0
-    for dt in (0.0, 0.01, 0.02, 0.01, 0.03):
-        time.sleep(dt)
-        got.tick()
-        want.tick()
-    assert len(got._times) == 3 and got.mean_step_time > 0
-    assert got.throughput(8) == pytest.approx(8 / got.mean_step_time)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
