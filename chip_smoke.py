@@ -23,7 +23,10 @@ non-zero:
    five products a row beside it; and the eval kernels at the synthetic
    ResNet-18 model's shapes (width 64, K = 8, 256 BPS points): K1 self and
    cross, K2, K3 at head dim 16 over 256 and 4096 keys (beside SDPA), K4 on 2
-   views of 8x8 maps, K5 on a batch of 1 and 2 views;
+   views of 8x8 maps, K5 on a batch of 1 and 2 views; and the DLT (float32 only)
+   at the main path's B1 and B16 of 8 views and 21 joints against its plain
+   chain on the card (1e-5 m), call by call and from a CUDA graph, beside the
+   plain chain's two times;
 1a. the attention core at neighbour counts that do not divide 32 (8, 24,
    48) and at 1 and 65 queries, D = 256 and D = 1024 at K = 24: K1, K2, K8
    and K6b (the backward of K6) against their plain versions on the card, K1's
@@ -213,7 +216,8 @@ The lines before the kernels line are JSON objects ``{"data": ...}`` with phase
 7's readings, ``{"drawing": ...}`` with phase 8's, ``{"variants": ...}`` with
 phase 9's, ``{"baselines": ...}`` with phase 10's and ``{"aux": ...}`` with phase 11's.
 The second-to-last line is a JSON object with one entry per kernel (``ms``
-call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph; K1's and
+call by call; K4's also ``graph_ms``, from phase 1e's CUDA graph, the DLT's
+from phase 1's, with its plain chain's ``plain_graph_ms``; K1's and
 K9's also their selections' times from phase 1e under ``selection``; K3's and
 K3b's their head-dim-16 cases under ``head_dim_16``; every entry its launches
 on phase 5's paths under ``front_door_launches``, on phase 7's under
@@ -241,7 +245,7 @@ import torch
 import torch.nn.functional as F
 
 from poem_v2_tpu_torch.ops import (_lib, bilinear, cross_attn, knn_attn, points, scatter, scramble,
-                                   select, vector_attn)
+                                   select, triangulate, vector_attn)
 
 KERNELS = {
     "fused_knn_vector_attention": dict(
@@ -294,17 +298,23 @@ KERNELS = {
         replaces="scripts/bench_radix_select.py:153",
         wrappers=(select.key_row_sum, select.kth_key_scan32, select.kth_key_radix8,
                   select.kth_key_cur, select.kth_key_bcast)),
+    # a jnp chain in the JAX package, no Pallas kernel; float32 only
+    "triangulate_dlt_c2m": dict(
+        source="poem_v2_tpu_torch/csrc/triangulate.cu",
+        replaces="poem_v2_tpu/geometry/triangulation.py:83",
+        wrapper=triangulate.triangulate_dlt_c2m),
 }
 # K9 and K10 are functions only, as in the JAX package: no model path runs them
 NO_MODEL_PATH = {"fused_knn_vector_attention_bucketed": 0, "radix_select": 0}
 # launches per serving forward of a 3-block model whose samples all have 8
-# valid views (every tier has 3 blocks); a batch that mixes view counts adds K5
+# valid views (every tier has 3 blocks); a batch that mixes view counts adds K5.
+# Every eval forward triangulates its reference joints once
 LAUNCHES_PER_FORWARD = {
     "dense_cross_attention": 6, "fused_anchor_vector_attention": 2,
     "fused_knn_vector_attention": 4, "grid_sample_points_fused": 1,
     "dense_cross_attention_bwd": 0, "knn_vector_attention_trainable": 0,
     "knn_vector_attention_trainable_bwd": 0, "scatter_add_rows": 0, "scrambled_merge_gather": 0,
-    "fused_vector_attention": 0, **NO_MODEL_PATH,
+    "fused_vector_attention": 0, "triangulate_dlt_c2m": 1, **NO_MODEL_PATH,
 }
 LAUNCHES_PER_MIXED_FORWARD = {**LAUNCHES_PER_FORWARD, "scrambled_merge_gather": 1}
 # launches per train step of every tier (3 blocks each): two attentions per
@@ -312,13 +322,14 @@ LAUNCHES_PER_MIXED_FORWARD = {**LAUNCHES_PER_FORWARD, "scrambled_merge_gather": 
 # cross attention of blocks 1 and 2, each backward K6b, scattering by K7. The
 # remat recompute replays no kernel. Block 0's anchors and the sampler take
 # plain paths in training, so K2 and K4 do not run, nor K5 (the mixed batch
-# takes the differentiable gather) nor K8.
+# takes the differentiable gather) nor K8. The train forward jitters the
+# ground-truth joints and does not triangulate.
 LAUNCHES_PER_TRAIN_STEP = {
     "dense_cross_attention": 6, "dense_cross_attention_bwd": 6,
     "fused_knn_vector_attention": 4, "knn_vector_attention_trainable": 4,
     "knn_vector_attention_trainable_bwd": 4, "scatter_add_rows": 4,
     "fused_anchor_vector_attention": 0, "grid_sample_points_fused": 0, "scrambled_merge_gather": 0,
-    "fused_vector_attention": 0, **NO_MODEL_PATH,
+    "fused_vector_attention": 0, "triangulate_dlt_c2m": 0, **NO_MODEL_PATH,
 }
 # argument positions that stay float32 (xyz, anchor xyz, sample coords)
 KEEP_F32 = {
@@ -681,12 +692,75 @@ def phase_variant_kernels(results, **shapes):
     run_kernel_cases(results, variant_kernel_cases(np.random.RandomState(20), **shapes))
 
 
-def phase_kernels(results, synthetic=None, **shapes):
+def phase_kernels(results, synthetic=None, dlt_batches=(1, 16), **shapes):
     log("phase 1: kernels vs plain versions")
     rs = np.random.RandomState(0)
     cases = kernel_cases(rs, **shapes)
     cases.update(synthetic_kernel_cases(np.random.RandomState(10), **(synthetic or {})))
     run_kernel_cases(results, cases)
+    run_dlt_cases(results, np.random.RandomState(30), dlt_batches)
+
+
+# the DLT's float32 operations a (sample, joint) system: 156 a view (the rigid
+# inverse 21, K P 72, the two rows 16, the mask 8, A^T A's upper triangle 40, less
+# the negation), A^T A's four accumulators summed (30), 36 rotations of 88 each
+# (16 for the angle, 72 for the rows and columns of A and V), the final division (4)
+def dlt_flops(V: int) -> float:
+    return 156.0 * V + 30 + 36 * 88 + 4
+
+
+# the DLT against its plain chain on the card, metres, on rows of two or more valid
+# views: a hundredth of a millimetre (both sides run the same float32 operations in
+# the same order, so they have agreed bit for bit)
+DLT_TOL = 1e-5
+
+
+def run_dlt_cases(results, rs: np.random.RandomState, batches, V=8, J=21, size=256):
+    """The DLT at the main path's shapes (B1 and B16 of 8 views, 21 joints; a B1
+    rig of 8 valid views, a B16 batch of 2-8): the kernel against the plain chain
+    (``triangulate_dlt`` on ``invert_rigid``) on the same card tensors, rows of 2+
+    valid views to ``DLT_TOL``, timed call by call and from a CUDA graph (the plain
+    chain's graph on ``rigid_inverse_rows``, the same rows without the blocking
+    copy), float32 only, into ``results["triangulate_dlt_c2m/B<B>_V<V>"]``."""
+    from poem_v2_tpu_torch.geometry.camera import (invert_rigid, project_world_to_pixel,
+                                                   rigid_inverse_rows)
+    from poem_v2_tpu_torch.geometry.triangulation import triangulate_dlt
+
+    wrapper = KERNELS["triangulate_dlt_c2m"]["wrapper"]
+    for B in batches:
+        case = f"triangulate_dlt_c2m/B{B}_V{V}"
+        _, intr, extr = look_at_request(rs, B, V, size)
+        joints = (rs.randn(B, J, 3) * 0.04 + [0.0, 0.0, 0.5]).astype(np.float32)
+        intr, extr = torch.from_numpy(intr), torch.from_numpy(extr)
+        kp = project_world_to_pixel(torch.from_numpy(joints), extr, intr)
+        kp = kp + torch.from_numpy(rs.randn(B, V, J, 2).astype(np.float32))
+        mask = torch.from_numpy(mixed_view_mask(rs, B, V) if B > 1 else np.ones((1, V), bool))
+        args = _to((kp, intr, extr, mask), "cuda")
+        with torch.no_grad():
+            got = wrapper(*args)
+            want = triangulate_dlt(*args[:2], invert_rigid(args[2]), args[3])
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())  # every row has 2 or more valid views
+            same = torch.equal(got, want)
+            ok = bool(torch.isfinite(got).all()) and err <= DLT_TOL
+            log(f"  {case} [float32] max_abs_err={err:.3e} m (tol {DLT_TOL:.0e}), bit-identical "
+                f"to the plain chain on every row: {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{case}: max_abs_err {err} m > {DLT_TOL} or non-finite")
+            ms = time_cuda(lambda: wrapper(*args))
+            graph_ms = time_graph(lambda: wrapper(*args))
+            plain_ms = time_cuda(lambda: triangulate_dlt(*args[:2], invert_rigid(args[2]),
+                                                         args[3]), iters=3, warmup=1)
+            plain_graph_ms = time_graph(lambda: triangulate_dlt(
+                *args[:2], rigid_inverse_rows(args[2]), args[3]), iters=2)
+        nbytes = _nbytes(list(args)) + _nbytes(got)
+        b_ms, b_by = bound_ms(nbytes, B * J * dlt_flops(V), torch.float32)
+        log(f"  {case} [float32] kernel {ms:.4f} ms, graph {graph_ms:.4f} ms; plain chain on "
+            f"card {plain_ms:.3f} ms, graph {plain_graph_ms:.3f} ms; bound {b_ms:.6f} ms "
+            f"({b_by}): {100 * b_ms / graph_ms:.2f}% of it")
+        results[case] = {"float32": dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, graph_ms=graph_ms, plain_graph_ms=plain_graph_ms, bit_identical=same)}
 
 
 def run_kernel_cases(results, cases):
@@ -1650,10 +1724,11 @@ def main() -> int:
     # serves, read around that path alone: phase 2 for K1-K4, phase 2b for K5,
     # phase 3b's pointer layer for K8, the train steps for K3b, K6, K6b and K7, the
     # function call of phase 1c for K9 and the benchmark of phase 1d for K10
-    # (integer keys: its one row stands for both dtypes)
+    # (a kernel of one dtype, K10's integer keys and the DLT's float32: its one row
+    # stands for both dtypes)
     entries = []
     for kname, meta in KERNELS.items():
-        rows = [r if "int32" not in r else {"bfloat16": r["int32"], "float32": r["int32"]}
+        rows = [r if len(r) > 1 else dict.fromkeys(("bfloat16", "float32"), *r.values())
                 for case, r in results.items() if case.split("/")[0] == kname]
         bf = [r["bfloat16"] for r in rows]
         library = [r["library_ms"] for r in bf]
@@ -1672,6 +1747,11 @@ def main() -> int:
     # so beside its call-by-call ``ms`` it carries phase 1e's CUDA-graph time
     k4 = next(e for e in entries if e["name"] == "grid_sample_points_fused")
     k4["graph_ms"] = results["graph_times"]["grid_sample_points_fused"]["graph_ms"]
+    # the DLT likewise, from phase 1's graphs, and its plain chain's from a graph
+    dlt = next(e for e in entries if e["name"] == "triangulate_dlt_c2m")
+    dlt_rows = [r["float32"] for c, r in results.items() if c.startswith("triangulate_dlt_c2m/")]
+    dlt["graph_ms"] = sum(r["graph_ms"] for r in dlt_rows)
+    dlt["plain_graph_ms"] = sum(r["plain_graph_ms"] for r in dlt_rows)
     # the two selections alone (phase 1e), beside their bounds and plain versions
     gt, by_name = results["graph_times"], {e["name"]: e for e in entries}
     sel = lambda name: {k: gt[name][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
@@ -2454,12 +2534,12 @@ def _launch_counts(**counts):
 
 # launches of the synthetic ResNet-18 model (2 decoder blocks, every config of
 # configs/synthetic_*.yaml): per eval forward, two dense attentions a block, K2
-# twice in block 0, K1 twice in block 1, K4 once (K5 once more on a batch whose
-# samples do not all use every view); per train step K3 / K3b in both blocks,
-# K6 (its forward K1) / K6b / K7 in block 1
+# twice in block 0, K1 twice in block 1, K4 once, the DLT once (K5 once more on a
+# batch whose samples do not all use every view); per train step K3 / K3b in both
+# blocks, K6 (its forward K1) / K6b / K7 in block 1
 LAUNCHES_PER_SYNTHETIC_FORWARD = _launch_counts(
     dense_cross_attention=4, fused_anchor_vector_attention=2, fused_knn_vector_attention=2,
-    grid_sample_points_fused=1)
+    grid_sample_points_fused=1, triangulate_dlt_c2m=1)
 LAUNCHES_PER_SYNTHETIC_TRAIN_STEP = _launch_counts(
     dense_cross_attention=4, dense_cross_attention_bwd=4, fused_knn_vector_attention=2,
     knn_vector_attention_trainable=2, knn_vector_attention_trainable_bwd=2, scatter_add_rows=2)
@@ -3933,7 +4013,8 @@ def variant_launches(name, n_blocks, train=False, mixed=False):
     decoder blocks. PtEmbedTRv3: K3 in each METRO layer (eval only: it trains by
     the einsum path, as JAX does), K1 in PtEmbedTRv2's BPS self-attention and in
     each block's query self- and cross-attention (K6 / K6b / K7 in training), K4
-    once. PETR: the flagship decoder's counts. K5 once more on a mixed batch."""
+    once. PETR: the flagship decoder's counts. K5 once more on a mixed batch; the
+    DLT once a forward."""
     if name == "v3":
         knn = 1 + 2 * n_blocks
         if train:
@@ -3941,7 +4022,8 @@ def variant_launches(name, n_blocks, train=False, mixed=False):
                                   knn_vector_attention_trainable=knn,
                                   knn_vector_attention_trainable_bwd=knn, scatter_add_rows=knn)
         return _launch_counts(dense_cross_attention=METRO_LAYERS, fused_knn_vector_attention=knn,
-                              grid_sample_points_fused=1, scrambled_merge_gather=int(mixed))
+                              grid_sample_points_fused=1, scrambled_merge_gather=int(mixed),
+                              triangulate_dlt_c2m=1)
     knn = 2 * (n_blocks - 1)
     if train:
         return _launch_counts(dense_cross_attention=2 * n_blocks,
@@ -3950,7 +4032,7 @@ def variant_launches(name, n_blocks, train=False, mixed=False):
                               knn_vector_attention_trainable_bwd=knn, scatter_add_rows=knn)
     return _launch_counts(dense_cross_attention=2 * n_blocks, fused_anchor_vector_attention=2,
                           fused_knn_vector_attention=knn, grid_sample_points_fused=1,
-                          scrambled_merge_gather=int(mixed))
+                          scrambled_merge_gather=int(mixed), triangulate_dlt_c2m=1)
 
 
 def _select_exactly(module, exact=True):

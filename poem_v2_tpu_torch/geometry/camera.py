@@ -41,12 +41,18 @@ def persp_project(points: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     return proj[..., :2] / proj[..., 2:3]
 
 
-def invert_rigid(extr: torch.Tensor) -> torch.Tensor:
-    """Closed-form inverse of (..., 4, 4) rigid transforms."""
+def rigid_inverse_rows(extr: torch.Tensor) -> torch.Tensor:
+    """The top rows [R^T | -R^T t] (..., 3, 4) of the inverse of (..., 4, 4) rigid
+    transforms: :func:`invert_rigid` without its constant bottom row."""
     rot_t = extr[..., :3, :3].transpose(-1, -2)
     t = extr[..., :3, 3]
     t_new = -(rot_t * t[..., None, :]).sum(-1)
-    top = torch.cat([rot_t, t_new[..., None]], dim=-1)
+    return torch.cat([rot_t, t_new[..., None]], dim=-1)
+
+
+def invert_rigid(extr: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 4, 4) rigid transforms."""
+    top = rigid_inverse_rows(extr)
     with sync_point("invert_rigid", extr.device):  # a blocking copy
         bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extr.dtype, device=extr.device)
     bottom = bottom.expand(extr.shape[:-2] + (1, 4))

@@ -5,6 +5,13 @@ Jacobi eigensolver and the eigenvector of the smallest eigenvalue is
 picked by argmin, exactly as the JAX package does, so both pick the same
 eigenvector (``torch.linalg.eigh`` would order and sign them its own way).
 All in float32 with elementwise products only.
+
+This is the plain chain. The model's entry point is
+:func:`~..ops.triangulate.triangulate_dlt_c2m` (camera->master extrinsics): CPU
+tensors take this chain, CUDA tensors one launch of ``csrc/triangulate.cu``, which
+keeps this chain's arithmetic (float32, 6 sweeps of 6 rotations, :data:`DLT_EPS`,
+no fused multiply-add), with no fallback from one to the other. The kernel is
+eval only.
 """
 
 from __future__ import annotations
@@ -13,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+# w's guard in the final x[:3] / (x[3] + eps); csrc/triangulate.cu holds the same
+DLT_EPS = 1e-7
 _PAIRS = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
 
 
@@ -44,7 +53,7 @@ def jacobi_eigh_4x4(a: torch.Tensor, sweeps: int = 6) -> Tuple[torch.Tensor, tor
 
 
 def triangulate_dlt(kp2d: torch.Tensor, cam_intr: torch.Tensor, extr_m2c: torch.Tensor,
-                    view_mask: Optional[torch.Tensor] = None, eps: float = 1e-7) -> torch.Tensor:
+                    view_mask: Optional[torch.Tensor] = None, eps: float = DLT_EPS) -> torch.Tensor:
     """(B, V, J, 2) pixel keypoints, (B, V, 3, 3), (B, V, 4, 4) master->camera,
     (B, V) mask -> (B, J, 3) points (Hartley & Zisserman 12.2); masked views drop out."""
     B, V, J, _ = kp2d.shape

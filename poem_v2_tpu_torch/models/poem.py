@@ -25,11 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..geometry.camera import invert_rigid
 from ..geometry.heatmap import integral_heatmap2d, normalize_heatmap
-from ..geometry.triangulation import triangulate_dlt
 from ..mano.layer import ManoLayer
 from ..ops.points import farthest_point_sampling
+from ..ops.triangulate import triangulate_dlt_c2m
 from ..utils.profiling import span, sync_point
 from .backbones.hrnet import HRNet
 from .backbones.resnet import ResNet
@@ -119,15 +118,15 @@ class POEMNet(nn.Module):
                 self.ref_noise, self.center_idx)
         elif master_joints_3d is not None:
             with span("triangulate"):
-                tri = triangulate_dlt(uv_coord_im, cam_intr.float(),
-                                      invert_rigid(cam_extr.float()), view_mask)
+                tri = triangulate_dlt_c2m(uv_coord_im, cam_intr.float(), cam_extr.float(),
+                                          view_mask)
             n_views = view_mask.float().sum(1)
             ref_joints = torch.where((n_views <= 1.0)[:, None, None],
                                      master_joints_3d.float(), tri)
         else:
             with span("triangulate"):
-                ref_joints = triangulate_dlt(uv_coord_im, cam_intr.float(),
-                                             invert_rigid(cam_extr.float()), view_mask)
+                ref_joints = triangulate_dlt_c2m(uv_coord_im, cam_intr.float(),
+                                                 cam_extr.float(), view_mask)
 
         with span("head"):
             preds = dict(self.head(mlvl.reshape(B, V, *mlvl.shape[1:]), view_mask, cam_intr,

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "poem_dense_cross_attention_bwd": [_I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     "poem_scatter_add_rows": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "poem_grid_sample_points": [_I, _P, _P, _P] + [_I] * 10 + [_P],
+    "poem_triangulate_dlt": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

@@ -43,13 +43,22 @@ def test_phase_kernels_rehearsal(on_cpu):
     assert names == {k for k, n in chip_smoke.LAUNCHES_PER_MIXED_FORWARD.items() if n} | {
         "fused_vector_attention"}
     assert set(chip_smoke.LAUNCHES_PER_FORWARD) == set(chip_smoke.LAUNCHES_PER_TRAIN_STEP) \
-        == set(chip_smoke.KERNELS) and len(chip_smoke.KERNELS) == 12
+        == set(chip_smoke.KERNELS) and len(chip_smoke.KERNELS) == 13
     # K3 also at one sample with a key count no tile divides, its lse held everywhere
     dense = [c for c in results if "dense_cross_attention" in c]
     assert sorted(dense) == ["dense_cross_attention", "ragged/dense_cross_attention/B1_N68",
                              "synthetic/dense_cross_attention/hd8_N32",
                              "synthetic/dense_cross_attention/hd8_N68",
                              "wide/dense_cross_attention/D48"]
+    # the DLT at the main path's B1 and B16 of 8 views, float32 only
+    dlt = {c for c in results if c.startswith("triangulate_dlt_c2m/")}
+    assert dlt == {"triangulate_dlt_c2m/B1_V8", "triangulate_dlt_c2m/B16_V8"}
+    for case in dlt:
+        row = results.pop(case)["float32"]
+        assert set(row) == {"max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                            "graph_ms", "plain_graph_ms", "bit_identical"}
+        assert row["max_abs_err"] == 0.0 and row["bit_identical"]
+        assert row["bound_by"] == "operations" and row["bound_ms"] > 0
     for case, by_dtype in results.items():
         assert set(by_dtype) == {"float32", "bfloat16"}, case
         for row in by_dtype.values():
@@ -285,7 +294,7 @@ def test_phase_front_doors_rehearsal(on_cpu, one_thread, monkeypatch):
                     "knn_vector_attention_trainable": 2 * 2,
                     "knn_vector_attention_trainable_bwd": 2 * 2, "scatter_add_rows": 2 * 2,
                     "fused_anchor_vector_attention": 4 * 2, "grid_sample_points_fused": 4,
-                    "scrambled_merge_gather": mixed}
+                    "scrambled_merge_gather": mixed, "triangulate_dlt_c2m": 4}
     want = checked["synthetic eval CLI"][1]
     assert want["dense_cross_attention"] == 16 and want["dense_cross_attention_bwd"] == 0
     want = checked["medium train CLI"][1]
@@ -447,11 +456,11 @@ def test_phase_9_rehearsal(on_cpu, one_thread, monkeypatch):
     assert serving == {"v3": zeros, "petr": zeros} and train == {"v3": zeros, "petr": zeros}
     assert set(heads) == {"POEMPositionEmbeddedAggregationHead",
                           "POEMProjectiveSelfAggregationHead"} and metro == zeros
-    # the tiny model's 2 blocks: v3 a forward K3 12, K1 5, K4 1; a train step K6 5
+    # the tiny model's 2 blocks: v3 a forward K3 12, K1 5, K4 1, the DLT 1; a train step K6 5
     want = checked["v3 B1 forward"][1]
     assert {k: v for k, v in want.items() if v} == {
         "dense_cross_attention": 12, "fused_knn_vector_attention": 5,
-        "grid_sample_points_fused": 1}
+        "grid_sample_points_fused": 1, "triangulate_dlt_c2m": 1}
     assert checked["petr mixed B2 forward"][1]["scrambled_merge_gather"] == 1
     want = checked["v3 train CLI"][1]
     assert want["knn_vector_attention_trainable"] == 2 * 5 and want["dense_cross_attention"] == 12

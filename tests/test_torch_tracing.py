@@ -26,16 +26,16 @@ REQUEST_TREE = {
     ("readback", "request"),
     ("backbone", "forward"), ("feat_neck", "forward"), ("uv_neck", "forward"),
     ("joints2d", "forward"), ("triangulate", "forward"), ("head", "forward"),
-    ("pixel_scale", "joints2d"), ("invert_rigid", "triangulate"),
+    ("pixel_scale", "joints2d"),
     ("embed", "head"), ("sample", "head"), ("scramble_check", "head"), ("merge", "head"),
     ("decoder", "head"), ("invert_rigid", "sample"), ("pixel_to_grid", "sample"),
 }
 # the sync points and their blocking copies or reads on the card: 4 input copies,
-# the pixel scale, the rigid inverse's bottom row (DLT and BPS projection), the
-# grid resolution, the scramble check, 5 output copies
-SYNCS = {"h2d": 4, "pixel_scale": 1, "invert_rigid": 2, "pixel_to_grid": 1,
+# the pixel scale, the rigid inverse's bottom row (the BPS projection; the DLT
+# inverts in its kernel), the grid resolution, the scramble check, 5 output copies
+SYNCS = {"h2d": 4, "pixel_scale": 1, "invert_rigid": 1, "pixel_to_grid": 1,
          "scramble_check": 1, "readback": 5}
-SYNCS_PER_REQUEST = sum(SYNCS.values())  # 14
+SYNCS_PER_REQUEST = sum(SYNCS.values())  # 13
 
 
 def tiny_model_cfg() -> dict:
