@@ -10,6 +10,11 @@ across views; PtEmbedTRv2 then refines it in normalised space. On the card
 the METRO stage's attention runs K3 in eval (12 launches at the default
 depth) and the einsum path in training; the refinement runs K1 in eval and
 K6 in training.
+
+Spans (``utils/profiling.py``, under the head's ``decoder``): ``metro`` (the
+METRO stage, which also counts ``metro_tokens``, the tokens it attends over in
+the request), ``coarse_sample`` (the projection, the sampler and the merge) and
+``refine`` (PtEmbedTRv2).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch import nn
 
 from ..geometry.camera import project_world_to_pixel
 from ..ops.sampling import grid_sample_points_matmul, pixel_to_grid
+from ..utils.profiling import count, span
 from .decoder_v2 import PtEmbedTRv2
 from .heads.ptemb_head import MergeFeaturesMV, _compute_dtype
 from .metro import METROEncoderBlock
@@ -62,18 +68,22 @@ class PtEmbedTRv3(nn.Module):
         cdt = _compute_dtype(query_feat)
         tokens = torch.cat([torch.cat([query_xyz.to(cdt), query_feat.to(cdt)], -1),
                             torch.cat([pt_xyz.to(cdt), pt_feats.to(cdt)], -1)], dim=1)
-        x = tokens
-        for i in range(self.n_metro):
-            x = getattr(self, f"metro_block_{i}")(x)
-        pred_metro = x[:, :nq].float()
+        with span("metro"):
+            count("metro_tokens", B * tokens.shape[1])
+            x = tokens
+            for i in range(self.n_metro):
+                x = getattr(self, f"metro_block_{i}")(x)
+            pred_metro = x[:, :nq].float()
 
-        pred_world = pred_metro * radius + ref_center[:, None]
-        proj = project_world_to_pixel(pred_world, cam_extr.float(), cam_intr.float())
-        grid = pixel_to_grid(proj, inp_res)
-        fdt = _compute_dtype(feature_map)
-        sampled = grid_sample_points_matmul(
-            feature_map.reshape(B * V, H, W, F_).to(fdt), grid.reshape(B * V, nq, 2).to(fdt)
-        ).reshape(B, V, nq, F_)
-        query_feat2 = self.merge_branch(sampled, view_mask)
-        refined = self.point_transformer(pt_xyz, pt_feats, pred_metro, query_feat=query_feat2)
+        with span("coarse_sample"):
+            pred_world = pred_metro * radius + ref_center[:, None]
+            proj = project_world_to_pixel(pred_world, cam_extr.float(), cam_intr.float())
+            grid = pixel_to_grid(proj, inp_res)
+            fdt = _compute_dtype(feature_map)
+            sampled = grid_sample_points_matmul(
+                feature_map.reshape(B * V, H, W, F_).to(fdt), grid.reshape(B * V, nq, 2).to(fdt)
+            ).reshape(B, V, nq, F_)
+            query_feat2 = self.merge_branch(sampled, view_mask)
+        with span("refine"):
+            refined = self.point_transformer(pt_xyz, pt_feats, pred_metro, query_feat=query_feat2)
         return torch.cat([pred_metro[None], refined], dim=0)
